@@ -1,0 +1,105 @@
+"""Public kernel entry points, dispatched on the tensor's device.
+
+    CPU tensor   -> the plain PyTorch version in ``kernels.ref``
+    CUDA tensor  -> the hand-written Hopper kernel (or the call raises)
+
+There is no fallback and no mode switch: a CUDA tensor never takes the plain
+version, so a kernel that does not build or launch fails loudly.  Every
+dispatch bumps a per-op counter (as ``repro.kernels.ops`` does at trace
+time); each kernel wrapper separately counts the launches it makes.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import bank_matmul as _bank_mod
+from repro_torch.kernels import flash_attention as _flash_mod
+from repro_torch.kernels import ref as _ref
+
+DISPATCH_COUNTS: dict = {}
+
+
+def _count(name: str) -> None:
+    DISPATCH_COUNTS[name] = DISPATCH_COUNTS.get(name, 0) + 1
+
+
+def reset_dispatch_counts() -> None:
+    DISPATCH_COUNTS.clear()
+
+
+def dispatch_counts() -> dict:
+    """Snapshot of {op_name: dispatch count} since the last reset.  Ops
+    never dispatched are absent."""
+    return dict(DISPATCH_COUNTS)
+
+
+def _on_cuda(t: torch.Tensor, name: str) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{name}: no implementation for device {t.device}")
+
+
+def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None,
+                    scale: Optional[float] = None):
+    _count("flash_attention")
+    if _on_cuda(q, "flash_attention"):
+        return _flash_mod.flash_attention(q, k, v, causal=causal, window=window,
+                                          scale=scale)
+    return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                    scale=scale)
+
+
+def bank_matmul(x, w, b=None):
+    """Grouped GEMM over a leading bank axis: out[n] = x[n] @ w[n] (+ b[n]),
+    with x either (N, M, K) banked or (M, K) broadcast — the one-dispatch
+    suffix fan-out of a merged serving group.  The plain version is an
+    unrolled loop of the per-member contraction, so on the CPU the bank
+    stays bitwise identical to the per-member path."""
+    _count("bank_matmul")
+    if _on_cuda(w, "bank_matmul"):
+        return _bank_mod.bank_matmul(x, w, b)
+    return _ref.bank_matmul_ref(x, w, b)
+
+
+@dataclasses.dataclass(frozen=True)
+class OpSpec:
+    """One dispatchable op: its Hopper kernel wrapper, plain version,
+    device-dispatching entry point and declared array arguments."""
+
+    name: str
+    kernel: object
+    ref: object
+    dispatch: object
+    array_args: tuple
+    optional_args: tuple = ()
+    source: str = ""  # the CUDA source, relative to the repository root
+    replaces: str = ""  # the Pallas TPU kernel's pallas_call, file:line
+
+
+OP_TABLE: dict = {
+    s.name: s for s in (
+        OpSpec("flash_attention", _flash_mod.flash_attention,
+               _ref.flash_attention_ref, flash_attention, ("q", "k", "v"),
+               source="src/repro_torch/kernels/csrc/flash_attention.cu",
+               replaces="src/repro/kernels/flash_attention.py:127"),
+        OpSpec("bank_matmul", _bank_mod.bank_matmul, _ref.bank_matmul_ref,
+               bank_matmul, ("x", "w"), optional_args=("b",),
+               source="src/repro_torch/kernels/csrc/bank_matmul.cu",
+               replaces="src/repro/kernels/bank_matmul.py:123"),
+    )
+}
+
+def kernel_launches() -> dict:
+    """{op_name: CUDA kernel launches since the last reset}, read from the
+    counter each kernel wrapper keeps on itself."""
+    return {name: spec.kernel.launches for name, spec in OP_TABLE.items()}
+
+
+def reset_kernel_launches() -> None:
+    for spec in OP_TABLE.values():
+        spec.kernel.launches = 0

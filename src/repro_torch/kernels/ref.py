@@ -1,0 +1,60 @@
+"""Plain PyTorch versions of the ported kernels (mirror ``repro.kernels.ref``).
+
+Each is the semantic ground truth its Hopper kernel is held against: the
+CPU tests use them, the ops layer dispatches CPU tensors to them, and
+``chip_smoke.py`` compares every kernel with them on the card.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+
+def flash_attention_ref(
+    q: torch.Tensor,  # (B, S, Hq, D)
+    k: torch.Tensor,  # (B, S, Hkv, D)
+    v: torch.Tensor,  # (B, S, Hkv, D)
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    scale = (1.0 / math.sqrt(D)) if scale is None else scale
+    qg = q.reshape(B, S, Hkv, G, D).float()
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
+    qp = torch.arange(S, device=q.device)[:, None]
+    kp = torch.arange(S, device=q.device)[None, :]
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kp <= qp
+    if window is not None:
+        mask &= (qp - kp) < window
+    scores = scores.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
+    return out.reshape(B, S, Hq, D).to(q.dtype)
+
+
+def bank_matmul_ref(
+    x: torch.Tensor,  # (N, M, K) banked, or (M, K) broadcast across the bank
+    w: torch.Tensor,  # (N, K, F) stacked private weights
+    b: Optional[torch.Tensor] = None,  # (N, F) stacked biases
+) -> torch.Tensor:
+    """Suffix-bank grouped GEMM: out[n] = x[n] @ w[n] (+ b[n]) in float32.
+    Deliberately an UNROLLED loop of the exact per-member contraction (not
+    one batched call): each member's product is the same ``matmul`` the
+    per-member head runs, which keeps bank == per-member bitwise on the CPU.
+    Inputs are widened to float32 first: bf16 products are exact in f32, so
+    this is f32 accumulation, and a bf16 matmul would round the output."""
+    outs = []
+    for i in range(w.shape[0]):
+        xi = x if x.dim() == 2 else x[i]
+        o = torch.matmul(xi.float(), w[i].float())
+        if b is not None:
+            o = o + b[i].float()
+        outs.append(o)
+    return torch.stack(outs)

@@ -1,0 +1,181 @@
+"""Shared primitive layers (the port of ``repro.models.layers``).
+
+Pure functions over explicit parameter dicts, so the merging engine can
+address every weight by its path.  Conventions follow the JAX package:
+
+  * activations (batch, seq, d_model); heads as separate axes,
+    q (B, S, Hq, D), kv (B, S, Hkv, D);
+  * matmuls accumulate in float32.  ``dense`` rounds once to the
+    activation dtype; ``unembed`` returns the float32 sums (logits).  A
+    bf16 ``torch.matmul`` would round the logits to bf16, so ``unembed``
+    widens its inputs first (bf16 products are exact in f32).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.utils.tree import torch_dtype
+
+# ---------------------------------------------------------------------------
+# Init helpers (explicit generators; ``meta`` builds shapes only)
+# ---------------------------------------------------------------------------
+
+
+def make_generator(seed: int, device: torch.device) -> Optional[torch.Generator]:
+    if device.type == "meta":
+        return None
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
+def normal(gen: Optional[torch.Generator], shape: tuple, scale: float, dtype,
+           device: torch.device) -> torch.Tensor:
+    """``scale * N(0, 1)`` drawn in float32, then cast to ``dtype``."""
+    dtype = torch_dtype(dtype)
+    if device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
+    return (torch.randn(shape, generator=gen, device=device) * scale).to(dtype)
+
+
+def init_dense(gen, d_in: int, d_out: int, dtype, device, scale: float = 1.0):
+    return normal(gen, (d_in, d_out), scale / math.sqrt(d_in), dtype, device)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, scale: Optional[torch.Tensor], eps: float = 1e-6):
+    dt = x.dtype
+    x32 = x.float()
+    y = x32 * torch.rsqrt(x32.square().mean(-1, keepdim=True) + eps)
+    if scale is not None:
+        y = y * (1.0 + scale.float())  # scale stored as gamma offset (1+g)
+    return y.to(dt)
+
+
+def layer_norm(x: torch.Tensor, scale: Optional[torch.Tensor],
+               bias: Optional[torch.Tensor], eps: float = 1e-5):
+    """LayerNorm; pass ``scale=bias=None`` for non-parametric LN."""
+    dt = x.dtype
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = x32.var(-1, unbiased=False, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    if scale is not None:
+        y = y * scale.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(dt)
+
+
+def apply_norm(kind: str, x: torch.Tensor, params: dict) -> torch.Tensor:
+    if kind == "rmsnorm":
+        return rms_norm(x, params["scale"])
+    if kind == "layernorm":
+        return layer_norm(x, params["scale"], params.get("bias"))
+    if kind == "nonparam_ln":
+        return layer_norm(x, None, None)
+    raise ValueError(f"unknown norm kind: {kind}")
+
+
+def init_norm(kind: str, d: int, dtype, device) -> dict:
+    dtype = torch_dtype(dtype)
+    if kind == "rmsnorm":
+        return {"scale": torch.zeros((d,), dtype=dtype, device=device)}
+    if kind == "layernorm":
+        return {"scale": torch.ones((d,), dtype=dtype, device=device),
+                "bias": torch.zeros((d,), dtype=dtype, device=device)}
+    if kind == "nonparam_ln":
+        return {}
+    raise ValueError(kind)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embedding (partial rotary, e.g. StableLM pct=0.25)
+# ---------------------------------------------------------------------------
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               rotary_dim: int) -> torch.Tensor:
+    """x: (B, S, H, D); positions: (B, S) int. Rotates the first ``rotary_dim``."""
+    dt = x.dtype
+    d = x.shape[-1]
+    rotary_dim = min(rotary_dim, d)
+    exponents = torch.arange(0, rotary_dim, 2, dtype=torch.float32,
+                             device=x.device) / rotary_dim
+    freqs = 1.0 / (theta ** exponents)  # (rd/2,)
+    angles = positions[..., None].float() * freqs  # (B, S, rd/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x[..., :rotary_dim].float().chunk(2, dim=-1)
+    out_rot = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(dt)
+    if rotary_dim < d:
+        return torch.cat([out_rot, x[..., rotary_dim:]], dim=-1)
+    return out_rot
+
+
+# ---------------------------------------------------------------------------
+# Dense projections / FFN
+# ---------------------------------------------------------------------------
+
+
+def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None):
+    """x @ w (+ b), float32 accumulation, one rounding to x's dtype — the
+    reference's ``einsum(preferred_element_type=f32).astype(x.dtype)``.
+    Without a bias one same-dtype GEMM does exactly that (float32 and bf16
+    GEMMs accumulate in float32 on the card and on the CPU)."""
+    if b is None:
+        return torch.matmul(x, w)
+    return (torch.matmul(x.float(), w.float()) + b.float()).to(x.dtype)
+
+
+_ACTS = {
+    "silu": F.silu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),  # jax.nn.gelu's default
+    "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),
+    "relu": F.relu,
+}
+
+
+def ffn(x: torch.Tensor, params: dict, act: str = "silu", gated: bool = True):
+    a = _ACTS[act]
+    if gated:
+        g = dense(x, params["w_gate"])
+        u = dense(x, params["w_up"])
+        return dense(a(g) * u, params["w_down"])
+    h = dense(x, params["w_up"], params.get("b_up"))
+    return dense(a(h), params["w_down"], params.get("b_down"))
+
+
+def init_ffn(gen, d_model: int, d_ff: int, dtype, device, gated: bool = True) -> dict:
+    s_in, s_ff = 1.0 / math.sqrt(d_model), 1.0 / math.sqrt(d_ff)
+    p = {}
+    if gated:
+        p["w_gate"] = normal(gen, (d_model, d_ff), s_in, dtype, device)
+    p["w_up"] = normal(gen, (d_model, d_ff), s_in, dtype, device)
+    p["w_down"] = normal(gen, (d_ff, d_model), s_ff, dtype, device)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding with vocab padding
+# ---------------------------------------------------------------------------
+
+
+def padded_vocab(vocab_size: int, multiple: int = 256) -> int:
+    return int(-(-vocab_size // multiple) * multiple)
+
+
+def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    return table[tokens]
+
+
+def unembed(x: torch.Tensor, table_or_head: torch.Tensor, transpose: bool):
+    """float32 logits over the *padded* vocab; caller slices real vocab."""
+    w = table_or_head.float()
+    return torch.matmul(x.float(), w.t() if transpose else w)

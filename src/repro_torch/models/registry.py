@@ -1,0 +1,198 @@
+"""MergeableAdapter — the merge pipeline's model-facing contract (the port
+of ``repro.models.registry``, split-serve tier).
+
+Everything the store and the serving engine need from a model family is
+behind one interface:
+
+    a = get_adapter("small_cnn")
+    recs  = a.records(cfg, params, model_id)   # signature extraction
+    split = a.split(cfg)                       # prefix/suffix serving
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+from repro_torch.core.signatures import records_from_params
+from repro_torch.models import transformer, vision
+from repro_torch.utils.tree import dtype_name, flatten_paths
+
+
+@dataclasses.dataclass(frozen=True)
+class PrefixSplit:
+    """A cfg-bound split of one model into a mergeable trunk and a private
+    head.  ``suffix(prefix(x))`` equals the adapter's ``forward`` bitwise.
+    The callables are cached per (adapter, cfg), so every group member hands
+    the engine the same function objects.
+
+    The suffix-bank tier: ``suffix_paths`` are the flat param paths the
+    suffix reads, ``suffix_signature`` a hashable congruence fingerprint
+    (equal fingerprints => the members' suffix leaves stack into one bank),
+    and ``bank_suffix(bank_params, feats) -> (N, ...)`` the fused fan-out."""
+
+    prefix: Callable  # (params, x) -> feats
+    suffix: Callable  # (params, feats) -> out
+    prefix_paths: frozenset
+    suffix_paths: Optional[frozenset] = None
+    suffix_signature: Optional[tuple] = None
+    bank_suffix: Optional[Callable] = None
+
+
+class MergeableAdapter:
+    """One model family's view of the merge pipeline."""
+
+    name: str = "adapter"
+    can_split: bool = False
+
+    def __init__(self):
+        self._bound: dict = {}  # (kind, cfg) -> cached cfg-bound artifact
+
+    def default_config(self):
+        raise NotImplementedError(f"{self.name}: no default config bound")
+
+    def init(self, cfg, seed: int = 0, device=None):
+        raise NotImplementedError(f"{self.name}: no init bound")
+
+    def forward(self, cfg, params, x):
+        raise NotImplementedError(f"{self.name}: no forward bound")
+
+    def records(self, cfg, params, model_id: str) -> list:
+        """LayerRecords for grouping (kind-from-path, shape, dtype)."""
+        return records_from_params(params, model_id)
+
+    def eval_params(self, cfg):
+        """Parameter tree of ``meta`` tensors — paths, shapes and dtypes
+        without allocating weights."""
+        return self.init(cfg, 0, device="meta")
+
+    def split(self, cfg) -> PrefixSplit:
+        """Prefix/suffix serving split, cached per cfg.  Splits that declare
+        ``suffix_paths`` get a ``suffix_signature`` filled in, so every
+        splittable adapter is bank-eligible."""
+        key = ("split", cfg)
+        sp = self._bound.get(key)
+        if sp is None:
+            sp = self._build_split(cfg)
+            if sp.suffix_paths is not None and sp.suffix_signature is None:
+                sp = dataclasses.replace(sp, suffix_signature=self.suffix_signature(cfg, sp))
+            self._bound[key] = sp
+        return sp
+
+    def suffix_signature(self, cfg, sp: Optional[PrefixSplit] = None):
+        """Adapter name, the cfg identity and (path, shape, dtype) of every
+        suffix leaf.  The cfg term matters: the bank runs every member
+        through the LEAD member's suffix closure, so heads that are merely
+        shape-congruent but differ under their cfg must never compare equal."""
+        sp = self.split(cfg) if sp is None else sp
+        if sp.suffix_paths is None:
+            return None
+        flat = flatten_paths(self.eval_params(cfg))
+        return (self.name, cfg, tuple(sorted(
+            (p, tuple(flat[p].shape), dtype_name(flat[p].dtype))
+            for p in sp.suffix_paths)))
+
+    def _build_split(self, cfg) -> PrefixSplit:
+        raise NotImplementedError(f"{self.name}: no prefix/suffix split")
+
+    def bound_forward(self, cfg) -> Callable:
+        """(params, x) forward closure, cached per cfg."""
+        key = ("forward", cfg)
+        fn = self._bound.get(key)
+        if fn is None:
+            def fn(params, x, _self=self, _cfg=cfg):
+                return _self.forward(_cfg, params, x)
+
+            self._bound[key] = fn
+        return fn
+
+
+class SmallCNNAdapter(MergeableAdapter):
+    """The paper's reduced-scale vision models."""
+
+    name = "small_cnn"
+    can_split = True
+
+    def default_config(self):
+        return vision.SmallCNNConfig(task="classification", n_classes=4,
+                                     depth=1, width=8, n_stages=2)
+
+    def init(self, cfg, seed: int = 0, device=None):
+        return vision.init_small_cnn(cfg, seed, device)
+
+    def forward(self, cfg, params, x):
+        return vision.small_cnn_forward(cfg, params, x)
+
+    def _build_split(self, cfg) -> PrefixSplit:
+        ep = self.eval_params(cfg)
+
+        def prefix(params, x, _cfg=cfg):
+            return vision.small_cnn_features(_cfg, params, x)
+
+        def suffix(params, feats, _cfg=cfg):
+            return vision.small_cnn_head(_cfg, params, feats)
+
+        def bank_suffix(bank_params, feats, _cfg=cfg):
+            return vision.small_cnn_bank_head(_cfg, bank_params, feats)
+
+        return PrefixSplit(prefix, suffix, vision.small_cnn_prefix_paths(cfg, ep),
+                           suffix_paths=vision.small_cnn_suffix_paths(cfg, ep),
+                           bank_suffix=bank_suffix)
+
+
+class DenseLMAdapter(MergeableAdapter):
+    """Dense decoder-only transformers with per-layer blocks."""
+
+    name = "dense"
+    can_split = True
+
+    def default_config(self):
+        return transformer.DenseLMConfig(
+            name="tiny-lm", n_layers=2, d_model=32, n_heads=2, n_kv_heads=2,
+            head_dim=16, d_ff=64, vocab_size=64, vocab_multiple=32,
+            tie_embeddings=False,
+        )
+
+    def init(self, cfg, seed: int = 0, device=None):
+        return transformer.init(cfg, seed, device)
+
+    def forward(self, cfg, params, x):
+        """tokens (B, S) -> logits (B, S, V), composed as ``head(trunk(x))``."""
+        return transformer.forward(cfg, params, x)
+
+    def _build_split(self, cfg) -> PrefixSplit:
+        ep = self.eval_params(cfg)
+        paths = transformer.trunk_paths(ep)
+
+        def prefix(params, x, _cfg=cfg):
+            return transformer.trunk(_cfg, params, x)
+
+        def suffix(params, feats, _cfg=cfg):
+            return transformer.head(_cfg, params, feats)
+
+        if cfg.tie_embeddings:
+            # tied heads read the shared embed table: banking would stack
+            # the model's largest tensor N times — stay per-member
+            return PrefixSplit(prefix, suffix, paths)
+
+        def bank_suffix(bank_params, feats, _cfg=cfg):
+            return transformer.bank_head(_cfg, bank_params, feats)
+
+        return PrefixSplit(prefix, suffix, paths,
+                           suffix_paths=transformer.head_paths(ep),
+                           bank_suffix=bank_suffix)
+
+
+ADAPTERS: dict = {}
+
+
+def register_adapter(adapter: MergeableAdapter) -> MergeableAdapter:
+    ADAPTERS[adapter.name] = adapter
+    return adapter
+
+
+def get_adapter(name: str) -> MergeableAdapter:
+    return ADAPTERS[name]
+
+
+register_adapter(SmallCNNAdapter())
+register_adapter(DenseLMAdapter())

@@ -1,0 +1,432 @@
+"""The merge-aware serving engine (the port of ``repro.serving.executor``:
+``MergeAwareEngine`` with its shared prefix and suffix bank; the per-request
+``EdgeExecutor``, hot plan swap and the sharded bank wait for later slices).
+
+PyTorch runs eagerly, so there is nothing to compile: where the JAX engine
+blocks on ``jax.block_until_ready`` this one synchronises the device that
+holds the result.  The engine statistics the two packages share keep their
+meaning.
+
+The DMA delay is modelled (``AsyncDMA``), while residency, eviction and
+merging-aware incremental loads are real key-set operations.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+from typing import Any, Callable, Optional
+
+import torch
+
+from repro_torch.core.store import ParamStore
+from repro_torch.serving.costs import PCIE_GBPS
+from repro_torch.serving.scheduler import Scheduler
+from repro_torch.serving.workload import deadline_microbatches, pad_stack
+
+
+IDLE_SLEEP_S = 2e-4  # back-off when every queue is empty and not draining
+
+
+def block_until_ready(t: torch.Tensor) -> torch.Tensor:
+    """Wait until the device that holds ``t`` has finished computing it."""
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+    return t
+
+
+@dataclasses.dataclass
+class Request:
+    instance_id: str
+    payload: Any
+    arrival_s: float
+    deadline_s: float
+    meta: Any = None  # opaque caller tag
+
+
+def drop_expired(queues: dict, now: float) -> int:
+    """Drop queue heads whose deadline has passed; returns the count."""
+    n = 0
+    for q in queues.values():
+        while q and now > q[0].deadline_s:
+            q.popleft()
+            n += 1
+    return n
+
+
+@dataclasses.dataclass
+class Completion:
+    request: Request
+    result: Any
+    finished_s: float
+
+    @property
+    def met_sla(self) -> bool:
+        return self.finished_s <= self.request.deadline_s
+
+
+@dataclasses.dataclass
+class ModelProgram:
+    """How the engine runs one instance.  ``forward`` is the whole model;
+    with ``prefix``/``suffix`` the engine executes a merged stem once per
+    micro-batch and fans out only the private heads.  ``prefix_paths`` are
+    the flat param paths the prefix reads, checked against
+    ``ParamStore.binding_signature`` before a prefix run is ever shared.
+    ``suffix_paths``/``suffix_signature``/``bank_suffix`` are the
+    suffix-bank tier: members with equal signatures run every private head
+    in ONE dispatch."""
+
+    instance_id: str
+    model_id: str  # ParamStore bindings key
+    forward: Callable  # (params, batched_x) -> batched_out
+    prefix: Optional[Callable] = None
+    suffix: Optional[Callable] = None
+    prefix_paths: Optional[frozenset] = None
+    suffix_paths: Optional[frozenset] = None
+    suffix_signature: Optional[tuple] = None
+    bank_suffix: Optional[Callable] = None  # (bank_params, feats) -> (N, ...)
+
+    @classmethod
+    def from_adapter(cls, adapter, instance_id: str,
+                     model_id: Optional[str] = None, cfg=None) -> "ModelProgram":
+        """Build a program from a registered ``MergeableAdapter``; the
+        adapter caches the cfg-bound callables, so every instance of one
+        (adapter, cfg) hands the engine the SAME function objects."""
+        cfg = adapter.default_config() if cfg is None else cfg
+        sp = adapter.split(cfg) if adapter.can_split else None
+        return cls(
+            instance_id, model_id if model_id is not None else instance_id,
+            forward=adapter.bound_forward(cfg),
+            prefix=sp.prefix if sp else None,
+            suffix=sp.suffix if sp else None,
+            prefix_paths=sp.prefix_paths if sp else None,
+            suffix_paths=sp.suffix_paths if sp else None,
+            suffix_signature=sp.suffix_signature if sp else None,
+            bank_suffix=sp.bank_suffix if sp else None,
+        )
+
+
+class AsyncDMA:
+    """Models an async host->device copy engine: ``start`` begins a transfer
+    (wall-clock timestamped), ``wait`` blocks only for the portion that did
+    not overlap the compute issued in between.  With ``simulate=False`` the
+    bookkeeping still runs but nothing sleeps."""
+
+    def __init__(self, gbps: float, simulate: bool = True):
+        self.gbps = gbps
+        self.simulate = simulate
+        self._inflight: dict = {}  # key -> (t_start, duration_s)
+        self.stall_s = 0.0
+        self.hidden_s = 0.0
+        self.transfers = 0
+
+    def seconds_for(self, nbytes: int) -> float:
+        return nbytes / 1e9 / self.gbps
+
+    def start(self, key, nbytes: int) -> None:
+        self._inflight[key] = (time.monotonic(), self.seconds_for(nbytes))
+        if nbytes:
+            self.transfers += 1
+
+    def wait(self, key, nbytes: int) -> float:
+        """Block until the transfer for ``key`` is done; returns the visible
+        stall.  A key never started (cold miss) pays the full transfer."""
+        entry = self._inflight.pop(key, None)
+        now = time.monotonic()
+        if entry is None:
+            remaining = self.seconds_for(nbytes)
+            if nbytes:
+                self.transfers += 1
+        else:
+            t_start, dur = entry
+            elapsed = now - t_start
+            remaining = Scheduler.overlapped_load_ms(dur * 1e3, elapsed * 1e3) / 1e3
+            self.hidden_s += min(dur, elapsed)
+        self.stall_s += remaining
+        if self.simulate and remaining > 0:
+            time.sleep(remaining)
+        return remaining
+
+
+class MergeAwareEngine:
+    """Batched, prefetching serve loop over a merged ParamStore.
+
+    Execution plan (recomputed whenever the store's binding epoch moves):
+    instances whose ``prefix_paths`` all bind to identical store keys form a
+    *shared-prefix group* — one prefix run serves every member's requests in
+    a micro-batch; private suffixes fan out per instance, or in ONE bank
+    dispatch when the members' heads are congruent.  Groups are visited in
+    the scheduler's merging-aware round-robin order and the next group's
+    incremental load is prefetched during the current group's compute.
+    """
+
+    def __init__(
+        self,
+        store: ParamStore,
+        instances: list,
+        programs: list,
+        capacity_bytes: int,
+        costs: dict,
+        simulate_dma: bool = True,
+        buckets: tuple = (1, 2, 4, 8),
+        suffix_bank: bool = True,
+    ):
+        self.store = store
+        self.scheduler = Scheduler(instances, capacity_bytes, costs)
+        self.programs = {p.instance_id: p for p in programs}
+        missing = set(self.programs) ^ {i.instance_id for i in instances}
+        if missing:
+            raise ValueError(f"programs/instances mismatch: {missing}")
+        self.dma = AsyncDMA(PCIE_GBPS, simulate=simulate_dma)
+        self.buckets = tuple(sorted(buckets))
+        self.suffix_bank = suffix_bank
+        self.queues = {i.instance_id: deque() for i in instances}
+        self.completions: list = []
+        self.skipped = 0
+        self.stats = {
+            "prefix_runs": 0, "suffix_runs": 0, "forward_runs": 0,
+            "microbatches": 0, "param_lookups": 0, "idle_sleeps": 0,
+            "suffix_dispatches": 0, "bank_hits": 0, "dropped_expired": 0,
+        }
+        self._groups: list = []
+        self._groups_epoch = -1
+        self._sigs: dict = {}  # iid -> binding signature, per groups epoch
+        self._bankable: dict = {}  # group tuple -> bool, per groups epoch
+
+    def _binding_sig(self, iid: str) -> tuple:
+        sig = self._sigs.get(iid)
+        if sig is None:
+            p = self.programs[iid]
+            sig = self._sigs[iid] = self.store.binding_signature(p.model_id, p.prefix_paths)
+        return sig
+
+    # -- suffix bank ----------------------------------------------------------
+
+    def _group_bankable(self, group: tuple) -> bool:
+        """A shared group's fan-out runs as ONE banked dispatch iff every
+        member's private head is congruent: a bank callable, the same suffix
+        paths and the same suffix signature.  Cached per binding epoch."""
+        hit = self._bankable.get(group)
+        if hit is None:
+            progs = [self.programs[i] for i in group]
+            sigs = {p.suffix_signature for p in progs}
+            paths = {p.suffix_paths for p in progs}
+            hit = (self.suffix_bank and len(group) > 1
+                   and progs[0].bank_suffix is not None
+                   and None not in sigs and len(sigs) == 1
+                   and None not in paths and len(paths) == 1)
+            self._bankable[group] = hit
+        return hit
+
+    def _bank_params(self, group: list):
+        """Stacked suffix-bank tree for the group, via the store's
+        epoch-cached bank materialisation; ``bank_hits`` counts
+        cache-served dispatches."""
+        self.stats["param_lookups"] += 1
+        mids = tuple(self.programs[i].model_id for i in group)
+        bid = ParamStore.bank_id(mids)
+        before = self.store.materializations.get(bid, 0)
+        tree = self.store.materialize_bank(mids, self.programs[group[0]].suffix_paths)
+        if self.store.materializations.get(bid, 0) == before:
+            self.stats["bank_hits"] += 1
+        return tree
+
+    # -- plan -----------------------------------------------------------------
+
+    def prefix_groups(self) -> list:
+        """Shared-prefix groups as lists of instance ids, ordered by first
+        appearance in the merging-aware round-robin order.  Cached per store
+        binding epoch."""
+        if self._groups_epoch == self.store.epoch:
+            return self._groups
+        self._sigs = {}
+        self._bankable = {}
+        groups: list = []
+        by_sig: dict = {}
+        for inst in self.scheduler.order:
+            iid = inst.instance_id
+            p = self.programs[iid]
+            if not (p.prefix and p.suffix and p.prefix_paths):
+                groups.append([iid])
+                continue
+            sig = self._binding_sig(iid)
+            if sig in by_sig:
+                by_sig[sig].append(iid)
+            else:
+                by_sig[sig] = member = [iid]
+                groups.append(member)
+        self._groups = groups
+        self._groups_epoch = self.store.epoch
+        return groups
+
+    # -- queue plumbing --------------------------------------------------------
+
+    def submit(self, req: Request):
+        self.queues[req.instance_id].append(req)
+
+    def _drop_expired(self, now: float):
+        n = drop_expired(self.queues, now)
+        self.skipped += n
+        self.stats["dropped_expired"] += n
+
+    def _params(self, iid: str):
+        self.stats["param_lookups"] += 1
+        return self.store.materialize_cached(self.programs[iid].model_id)
+
+    # -- execution -------------------------------------------------------------
+
+    def _run_group(self, group: list, reqs: list, t0: float):
+        """One group visit: deadline-sorted micro-batches over the union of
+        the group's drained requests; shared groups run the prefix once per
+        batch, singletons the whole forward.  A shared micro-batch whose
+        rows belong to more than one member of a bankable group runs every
+        member's head in ONE bank dispatch and scatters each completion out
+        of its (member, row) cell; otherwise each member's suffix runs on
+        its own rows.  ``suffix_dispatches`` counts device dispatches of
+        suffix work, ``suffix_runs`` logical member-head executions."""
+        shared = len(group) > 1
+        bankable = shared and self._group_bankable(tuple(group))
+        for mb in deadline_microbatches(reqs, self.buckets):
+            self.stats["microbatches"] += 1
+            batch, n = pad_stack([r.payload for r in mb.requests], mb.bucket)
+            banked = bankable and len({r.instance_id for r in mb.requests}) > 1
+            if banked:
+                lead = group[0]
+                feats = self.programs[lead].prefix(self._params(lead), batch)
+                self.stats["prefix_runs"] += 1
+                bank_out = self.programs[lead].bank_suffix(self._bank_params(group), feats)
+                self.stats["suffix_runs"] += len(group)
+                self.stats["suffix_dispatches"] += 1
+                block_until_ready(bank_out)
+                slot = {iid: i for i, iid in enumerate(group)}
+                done = time.monotonic() - t0
+                for j, r in enumerate(mb.requests):
+                    self.completions.append(
+                        Completion(r, bank_out[slot[r.instance_id], j], done))
+                continue
+            rows_by_iid: dict = {}
+            for j, r in enumerate(mb.requests):
+                rows_by_iid.setdefault(r.instance_id, []).append(j)
+            if shared:
+                lead = group[0]
+                feats = self.programs[lead].prefix(self._params(lead), batch)
+                self.stats["prefix_runs"] += 1
+                outs, pos = {}, {}
+                for iid, idx in rows_by_iid.items():
+                    if len(idx) == mb.bucket:
+                        sub = feats  # whole batch belongs to this instance
+                    else:
+                        # fan out only this instance's rows, padded back onto
+                        # the bucket ladder so suffix shapes stay bounded
+                        sb = next(b for b in self.buckets if len(idx) <= b)
+                        take = idx + [idx[-1]] * (sb - len(idx))
+                        sub = feats[torch.tensor(take, device=feats.device)]
+                    outs[iid] = self.programs[iid].suffix(self._params(iid), sub)
+                    pos[iid] = {g: k for k, g in enumerate(idx)}
+                    self.stats["suffix_runs"] += 1
+                    self.stats["suffix_dispatches"] += 1
+            else:
+                (iid,) = group
+                outs = {iid: self.programs[iid].forward(self._params(iid), batch)}
+                pos = {iid: {j: j for j in range(len(mb.requests))}}
+                self.stats["forward_runs"] += 1
+            for o in outs.values():
+                block_until_ready(o)
+            done = time.monotonic() - t0
+            for j, r in enumerate(mb.requests):
+                row = pos[r.instance_id][j]
+                self.completions.append(Completion(r, outs[r.instance_id][row], done))
+
+    def _warmup(self, payload) -> None:
+        """Run every (group, bucket) path once before the SLA clock starts:
+        it builds the CUDA kernels, initialises the GEMM libraries and warms
+        the caching allocator.  ``payload`` follows the request-payload
+        contract and goes through the same :func:`pad_stack`."""
+        for group in self.prefix_groups():
+            banked = len(group) > 1 and self._group_bankable(tuple(group))
+            for b in self.buckets:
+                batch, _ = pad_stack([payload] * b, b)
+                if len(group) > 1:
+                    lead = self.programs[group[0]]
+                    feats = lead.prefix(self._params(group[0]), batch)
+                    if banked:
+                        # single-member micro-batches still take the
+                        # per-member path, so warm both fan-outs
+                        block_until_ready(lead.bank_suffix(self._bank_params(group), feats))
+                    for iid in group:
+                        block_until_ready(self.programs[iid].suffix(self._params(iid), feats))
+                else:
+                    (iid,) = group
+                    block_until_ready(self.programs[iid].forward(self._params(iid), batch))
+
+    def serve(self, horizon_s: float, warmup: Any = None, drain: bool = True) -> dict:
+        """Serve until the horizon (or until the queues are drained, with
+        ``drain=True``).  Returns stats including cache/prefetch health;
+        every counter is the delta over this call."""
+        if warmup is not None:
+            self._warmup(warmup)
+        mat_before = dict(self.store.materializations)
+        stats_before = dict(self.stats)
+        done_before = len(self.completions)
+        skipped_before = self.skipped
+        stall_before, hidden_before = self.dma.stall_s, self.dma.hidden_s
+        epoch_start = self.store.epoch
+        t0 = time.monotonic()
+        gi = 0
+        empty_streak = 0
+        while time.monotonic() - t0 < horizon_s:
+            groups = self.prefix_groups()  # re-plan if an epoch moved
+            self._drop_expired(time.monotonic() - t0)
+            if not any(self.queues.values()):
+                if drain:
+                    break
+                self.stats["idle_sleeps"] += 1
+                time.sleep(IDLE_SLEEP_S)
+                continue
+            group = groups[gi % len(groups)]
+            nxt = groups[(gi + 1) % len(groups)]
+            gi += 1
+            reqs = []
+            for iid in group:
+                q = self.queues[iid]
+                while q:
+                    reqs.append(q.popleft())
+            if not reqs:
+                empty_streak += 1
+                if empty_streak >= len(groups):
+                    self.stats["idle_sleeps"] += 1
+                    time.sleep(IDLE_SLEEP_S)
+                    empty_streak = 0
+                continue
+            empty_streak = 0
+            max_batch = min(len(reqs), self.buckets[-1])
+            loaded = sum(self.scheduler.load(iid, max_batch)["loaded_bytes"]
+                         for iid in group)
+            self.dma.wait(tuple(group), loaded)
+            # prefetch the NEXT group's incremental bytes; the transfer's
+            # clock runs while this group computes (§3.2 pipelining)
+            if tuple(nxt) != tuple(group):
+                pre = sum(self.scheduler.peek_load_bytes(iid) for iid in nxt)
+                self.dma.start(tuple(nxt), pre)
+            self._run_group(group, reqs, t0)
+        new = self.completions[done_before:]
+        met = sum(1 for c in new if c.met_sla)
+        skipped = self.skipped - skipped_before
+        lookups = self.stats["param_lookups"] - stats_before["param_lookups"]
+        rebuilds = sum(self.store.materializations.get(m, 0) - mat_before.get(m, 0)
+                       for m in self.store.materializations)
+        last = max((c.finished_s for c in new), default=0.0)
+        return {
+            "completed": len(new),
+            "met_sla": met,
+            "skipped": skipped,
+            "sla_fraction": met / max(len(new) + skipped, 1),
+            "elapsed_s": last,
+            "requests_per_s": len(new) / max(last, 1e-9),
+            "cache_hit_rate": 1.0 - rebuilds / max(lookups, 1),
+            "materializations": rebuilds,
+            "binding_epochs": self.store.epoch - epoch_start + 1,
+            "dma_stall_s": self.dma.stall_s - stall_before,
+            "dma_hidden_s": self.dma.hidden_s - hidden_before,
+            **{k: v - stats_before[k] for k, v in self.stats.items()},
+        }

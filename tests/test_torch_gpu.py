@@ -1,0 +1,119 @@
+"""The port's Hopper kernels on a card (marker ``gpu``; every test skips on
+a host without one).  This file imports neither JAX nor the JAX package, so
+it runs where only PyTorch is installed:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
+
+Tolerances are the JAX package's kernel-test ones (tests/test_kernels.py
+TOL): 2e-3 for float32, 2e-2 for bfloat16 (the kernel and the plain
+version sum in different orders; a bf16 output may round to the
+neighbouring value).
+"""
+import pytest
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as tref
+
+TOL = {"float32": dict(rtol=2e-3, atol=2e-3), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rnd(device, dtype, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=device).to(getattr(torch, dtype))
+    return rnd
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_matches_plain_version(cuda_device, dtype):
+    rnd = _rnd(cuda_device, dtype, 0)
+    for B, S, Hq, Hkv, D, window in [(2, 200, 8, 2, 128, None), (2, 128, 4, 4, 64, 32),
+                                     (1, 1, 2, 1, 64, None)]:
+        q, k, v = rnd(B, S, Hq, D), rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
+        before = ops.kernel_launches()["flash_attention"]
+        out = ops.flash_attention(q, k, v, window=window)
+        assert ops.kernel_launches()["flash_attention"] == before + 1
+        torch.testing.assert_close(out.float(), tref.flash_attention_ref(
+            q, k, v, window=window).float(), **TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bank_kernel_matches_plain_version(cuda_device, dtype):
+    rnd = _rnd(cuda_device, dtype, 1)
+    for x, w, b in [(rnd(3, 100, 70), rnd(3, 70, 33), rnd(3, 33)),
+                    (rnd(8, 16), rnd(2, 16, 4), None),
+                    (rnd(1, 1), rnd(1, 1, 1), rnd(1, 1))]:
+        before = ops.kernel_launches()["bank_matmul"]
+        out = ops.bank_matmul(x, w, b)
+        assert ops.kernel_launches()["bank_matmul"] == before + 1
+        torch.testing.assert_close(out, tref.bank_matmul_ref(x, w, b), **TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_kernel_wrappers_reject_what_they_do_not_take(cuda_device):
+    q = torch.zeros((1, 8, 2, 32), device=cuda_device)
+    with pytest.raises(ValueError, match="head dim 32"):
+        ops.flash_attention(q, q, q)
+    x = torch.zeros((4, 8), device=cuda_device, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        ops.bank_matmul(x, torch.zeros((2, 8, 3), device=cuda_device, dtype=torch.float16))
+
+
+@pytest.mark.gpu
+def test_merged_dense_group_serves_through_both_kernels(cuda_device):
+    from repro_torch.core import ParamStore, enumerate_groups
+    from repro_torch.models.registry import get_adapter
+    from repro_torch.models.transformer import DenseLMConfig
+    from repro_torch.serving.costs import costs_for
+    from repro_torch.serving.executor import MergeAwareEngine, ModelProgram, Request
+    from repro_torch.serving.workload import (
+        deadline_microbatches, instances_from_store, pad_stack,
+    )
+
+    adapter = get_adapter("dense")
+    cfg = DenseLMConfig(name="gpu-lm", n_layers=2, d_model=128, n_heads=2, n_kv_heads=1,
+                        head_dim=64, d_ff=256, vocab_size=300, rotary_pct=0.25,
+                        norm="layernorm", dtype="bfloat16")
+    mids = ("A", "B", "C")
+    store = ParamStore.from_models({m: adapter.init(cfg, seed=i, device=cuda_device)
+                                    for i, m in enumerate(mids)})
+    trunk = adapter.split(cfg).prefix_paths
+    recs = [r for m in mids for r in adapter.records(cfg, store.materialize(m), m)
+            if r.path in trunk]
+    for g in enumerate_groups(recs):
+        store.merge_group(g)
+    eng = MergeAwareEngine(store, instances_from_store(store, "tiny-yolo"),
+                           [ModelProgram.from_adapter(adapter, m, cfg=cfg) for m in mids],
+                           capacity_bytes=10 ** 9, costs={"tiny-yolo": costs_for("tiny-yolo")},
+                           buckets=(1, 2, 4), simulate_dma=False)
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    reqs = [Request(m, torch.randint(0, cfg.vocab_size, (1, 16), generator=g,
+                                     device=cuda_device), 0.0, 30.0 + (j * 3 + i) * 1e-3)
+            for j in range(2) for i, m in enumerate(mids)]
+    for r in reqs:
+        eng.submit(r)
+    ops.reset_kernel_launches()
+    stats = eng.serve(horizon_s=60.0, warmup=reqs[0].payload)
+    assert stats["completed"] == len(reqs)
+    assert all(n > 0 for n in ops.kernel_launches().values())
+    assert stats["suffix_dispatches"] == stats["microbatches"]
+    res = {id(c.request): c.result for c in eng.completions}
+    for mb in deadline_microbatches(reqs, (1, 2, 4)):  # the engine's own batches
+        batch, _ = pad_stack([r.payload for r in mb.requests], mb.bucket)
+        for j, r in enumerate(mb.requests):
+            assert res[id(r)].is_cuda and res[id(r)].dtype == torch.float32
+            direct = adapter.forward(cfg, store.materialize(r.instance_id), batch)[j]
+            torch.testing.assert_close(res[id(r)], direct, **TOL["bfloat16"])

@@ -1,0 +1,167 @@
+"""The port's kernel layer against the JAX package: the plain PyTorch
+versions against ``repro.kernels.ref`` and against the Pallas kernels in
+interpret mode, and the device dispatch and its counters.  The Hopper
+kernels themselves are tested on a card by tests/test_torch_gpu.py.
+
+Tolerances:
+  * port plain version vs JAX plain version, float32: 1e-5 — the same
+    float32 arithmetic, reduced in a different order by XLA and PyTorch;
+  * anything in bfloat16, and anything against a Pallas kernel: the JAX
+    package's own kernel-test tolerances (tests/test_kernels.py TOL,
+    2e-3 float32 / 2e-2 bfloat16) — a bf16 output may round to the
+    neighbouring value, and the Pallas attention casts probabilities to
+    the value dtype before P @ V.
+"""
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.bank_matmul import bank_matmul as pallas_bank_matmul
+from repro.kernels.flash_attention import flash_attention as pallas_flash
+from repro_torch import bridge
+from repro_torch.kernels import _build, ops
+from repro_torch.kernels import bank_matmul as kbank
+from repro_torch.kernels import flash_attention as kflash
+from repro_torch.kernels import ref as tref
+
+TIGHT = dict(rtol=1e-5, atol=1e-5)
+TOL = {"float32": dict(rtol=2e-3, atol=2e-3), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+
+
+def _inputs(seed, shapes, dtype):
+    """The same numpy draws for both packages: (jax arrays, torch tensors)."""
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    jx = [jnp.asarray(a).astype(JDT[dtype]) for a in arrs]
+    tx = [bridge.array_to_tensor(np.asarray(a), torch.device("cpu")) for a in jx]
+    return jx, tx
+
+
+def _np(t):
+    return np.asarray(bridge.tensor_to_array(t), np.float32)
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+FLASH_CASES = [  # B, S, Hq, Hkv, D, causal, window
+    (2, 64, 4, 4, 16, True, None),   # causal MHA
+    (2, 64, 4, 4, 16, True, 8),      # sliding window
+    (2, 64, 8, 2, 32, True, None),   # GQA 4:1
+    (1, 32, 4, 1, 16, False, None),  # MQA, bidirectional
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,causal,window", FLASH_CASES)
+def test_flash_ref_matches_jax_ref_and_pallas(dtype, B, S, Hq, Hkv, D, causal, window):
+    (jq, jk, jv), (tq, tk, tv) = _inputs(
+        S, [(B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D)], dtype)
+    got = tref.flash_attention_ref(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    want = jref.flash_attention_ref(jq, jk, jv, causal=causal, window=window)
+    tol = TIGHT if dtype == "float32" else TOL[dtype]
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32), **tol)
+    pallas = pallas_flash(jq, jk, jv, causal=causal, window=window,
+                          block_q=32, block_k=32, interpret=True)
+    np.testing.assert_allclose(_np(got), np.asarray(pallas, np.float32), **TOL[dtype])
+
+
+# ---------------------------------------------------------------------------
+# bank matmul
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("broadcast", [False, True])
+@pytest.mark.parametrize("bias", [False, True])
+def test_bank_ref_matches_jax_ref_and_pallas(dtype, broadcast, bias):
+    N, M, K, F = 3, 16, 64, 96
+    shapes = [(M, K) if broadcast else (N, M, K), (N, K, F)] + ([(N, F)] if bias else [])
+    jx, tx = _inputs(7, shapes, dtype)
+    jb, tb = (jx[2], tx[2]) if bias else (None, None)
+    got = tref.bank_matmul_ref(tx[0], tx[1], tb)
+    assert got.dtype == torch.float32 and got.shape == (N, M, F)
+    want = jref.bank_matmul_ref(jx[0], jx[1], jb)
+    # float32 sums of exact products either way: tight in both dtypes
+    np.testing.assert_allclose(_np(got), np.asarray(want), **TIGHT)
+    pallas = pallas_bank_matmul(jx[0], jx[1], jb, block_m=8, block_k=32,
+                                block_f=32, interpret=True)
+    np.testing.assert_allclose(_np(got), np.asarray(pallas), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("broadcast", [False, True])
+def test_bank_ref_ragged_shape_the_pallas_kernel_rejects(dtype, broadcast):
+    N, M, K, F = 2, 130, 70, 200  # M and F are not multiples of the 128 block
+    shapes = [(M, K) if broadcast else (N, M, K), (N, K, F), (N, F)]
+    jx, tx = _inputs(11, shapes, dtype)
+    with pytest.raises(AssertionError):
+        pallas_bank_matmul(jx[0], jx[1], jx[2], interpret=True)
+    got = tref.bank_matmul_ref(*tx)
+    np.testing.assert_allclose(_np(got), np.asarray(jref.bank_matmul_ref(*jx)), **TIGHT)
+
+
+def test_bank_ref_is_bitwise_per_member():
+    """The plain version IS the per-member contraction (the CPU bank ==
+    per-member serving contract)."""
+    _, (x, w) = _inputs(3, [(3, 8, 32), (3, 32, 64)], "bfloat16")
+    out = tref.bank_matmul_ref(x, w)
+    for i in range(3):
+        assert torch.equal(out[i], torch.matmul(x[i].float(), w[i].float()))
+
+
+# ---------------------------------------------------------------------------
+# dispatch
+# ---------------------------------------------------------------------------
+
+
+def test_ops_dispatch_cpu_tensors_to_plain_versions_and_count():
+    _, (q, k, v) = _inputs(0, [(1, 16, 2, 16)] * 3, "float32")
+    _, (x, w, b) = _inputs(1, [(4, 8), (2, 8, 5), (2, 5)], "float32")
+    ops.reset_dispatch_counts()
+    ops.reset_kernel_launches()
+    assert torch.equal(ops.flash_attention(q, k, v), tref.flash_attention_ref(q, k, v))
+    assert torch.equal(ops.flash_attention(q, k, v, window=4),
+                       tref.flash_attention_ref(q, k, v, window=4))
+    assert torch.equal(ops.bank_matmul(x, w, b), tref.bank_matmul_ref(x, w, b))
+    assert ops.dispatch_counts() == {"flash_attention": 2, "bank_matmul": 1}
+    assert ops.kernel_launches() == {"flash_attention": 0, "bank_matmul": 0}
+    ops.reset_dispatch_counts()
+    assert ops.dispatch_counts() == {}
+
+
+def test_kernel_wrappers_take_cuda_tensors_only():
+    _, (q, x, w) = _inputs(0, [(1, 16, 2, 64), (4, 8), (2, 8, 5)], "float32")
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        kflash.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        kbank.bank_matmul(x, w)
+    with pytest.raises(ValueError, match="no implementation for device meta"):
+        ops.bank_matmul(x.to("meta"), w.to("meta"))
+
+
+def test_op_table_names_each_kernel_its_source_and_the_tpu_kernel():
+    root = Path(__file__).resolve().parents[1]
+    assert set(ops.OP_TABLE) == {"flash_attention", "bank_matmul"}
+    assert {str(p.relative_to(root)) for p in _build.sources()} == \
+        {s.source for s in ops.OP_TABLE.values()}
+    for spec in ops.OP_TABLE.values():
+        assert spec.dispatch is getattr(ops, spec.name)
+        assert 'extern "C"' in (root / spec.source).read_text()
+        path, line = spec.replaces.split(":")
+        assert "pallas_call" in (root / path).read_text().splitlines()[int(line) - 1]
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.find_nvcc()
