@@ -19,7 +19,14 @@ exits non-zero):
    with the suffix bank; kernel launch counts, residency, and every served
    row against the member's direct forward on the same padded batch; then
    one more micro-batch under ``torch.profiler`` (device time by kernel,
-   device idle share).
+   device idle share);
+6. stablelm-1.6b streaming decode on the same merged store: 8 requests of
+   96 prompt tokens per member, 32 new tokens each, through
+   ``MergeAwareEngine.serve_decode`` (paged KV pool of 128 pages of 16,
+   8 slots, chunked prefill); dispatch discipline, kernel launch counts
+   over the streaming run, pool accounting, and one request per member
+   replayed teacher-forced through the unpaged decode; then pure decode
+   steps with all 8 slots live, timed and under ``torch.profiler``.
 
 Then the ``{"kernels": [...]}`` line and, last, the device line.  Needs one
 card; imports nothing of JAX and nothing of the JAX package.
@@ -41,6 +48,10 @@ TOL = {"float32": dict(rtol=2e-3, atol=2e-3), "bfloat16": dict(rtol=2e-2, atol=2
 BUCKETS = (1, 2, 4, 8)
 REQS_PER_MEMBER = 8
 LM_MIDS = ("lm-A", "lm-B", "lm-D")
+# the streaming-decode phase: the pool, slot and length knobs of serve_decode
+DECODE_KW = dict(page_size=16, num_pages=128, max_slots=8, max_len=128, buckets=BUCKETS,
+                 chunked_prefill=True)
+PROMPT_LEN, NEW_TOKENS = 96, 32
 
 
 def emit(phase: str, **fields) -> None:
@@ -54,19 +65,34 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``reps`` back-to-back calls (CUDA
-    events, after ``warmup`` calls)."""
+def cuda_ms(torch, fn, reps: int, warmup: int = 2, per_graph: int = 20) -> float:
+    """Mean device time of one call of ``fn``: after ``warmup`` eager calls,
+    up to ``per_graph`` calls are captured in one CUDA graph, and the graph
+    is replayed until ``reps`` calls ran, between two CUDA events.  The
+    graph keeps the host's per-call cost (Python, argument checks, the
+    launch itself) out of the time, so a short kernel is not timed by the
+    rate at which the host can launch it."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    n = min(reps, per_graph)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    rounds = -(-reps // n)
+    graph.replay()  # first replay uploads the graph
+    torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    for _ in range(rounds):
+        graph.replay()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    ms = start.elapsed_time(end) / (rounds * n)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
 
 
 def bound(nbytes: float, ops: float, dtype: str) -> tuple:
@@ -158,8 +184,85 @@ def check_flash(torch, case: str, B, S, Hq, Hkv, D, dtype, window, reps, gen):
     return row
 
 
+def check_decode(torch, case: str, B, Smax, Hq, Hkv, D, dtype, lengths, reps, gen):
+    """decode_attention against its plain version; run twice (the two
+    results must be bitwise equal) and rows of length 0 must be exact
+    zeros.  The library call is SDPA with a boolean length mask on the rows
+    of length >= 1 (SDPA gives NaN on a fully masked row)."""
+    import torch.nn.functional as Fn
+
+    from repro_torch.kernels import decode_attention as kmod
+    from repro_torch.kernels.ref import decode_attention_ref
+
+    dt = getattr(torch, dtype)
+    q = torch.randn((B, Hq, D), generator=gen, device="cuda").to(dt)
+    k = torch.randn((B, Smax, Hkv, D), generator=gen, device="cuda").to(dt)
+    v = torch.randn((B, Smax, Hkv, D), generator=gen, device="cuda").to(dt)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    out = kmod.decode_attention(q, k, v, lens)
+    again = kmod.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again), f"decode_attention {case}: repeat launch differs"
+    zero_rows = (lens == 0).nonzero().flatten().tolist()
+    for b in zero_rows:
+        assert torch.equal(out[b], torch.zeros_like(out[b])), f"{case}: row {b} not zero"
+    plain = decode_attention_ref(q, k, v, lens)
+    err = (out.float() - plain.float()).abs().max().item()
+    torch.testing.assert_close(out.float(), plain.float(), **TOL[dtype])
+    ms = cuda_ms(torch, lambda: kmod.decode_attention(q, k, v, lens), reps)
+    plain_ms = cuda_ms(torch, lambda: decode_attention_ref(q, k, v, lens), reps)
+    live = (lens > 0).nonzero().flatten()
+    qt = q[live][:, :, None, :].contiguous()
+    kt, vt = k[live].transpose(1, 2).contiguous(), v[live].transpose(1, 2).contiguous()
+    mask = (torch.arange(Smax, device="cuda")[None, :] < lens[live][:, None])[:, None, None, :]
+    library_ms = cuda_ms(torch, lambda: Fn.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=Hq != Hkv), reps)
+    keys = sum(min(max(n, 0), Smax) for n in lengths)  # the keys this run's lengths need
+    esz = q.element_size()
+    moved = nbytes(q, out, lens) + 2 * keys * Hkv * D * esz
+    bound_ms, bound_by = bound(moved, 4.0 * D * keys * (Hq // Hkv) * Hkv, dtype)
+    row = dict(kernel="decode_attention", case=case,
+               shape=dict(B=B, Smax=Smax, Hq=Hq, Hkv=Hkv, D=D), dtype=dtype,
+               lengths=dict(min=min(lengths), max=max(lengths), sum=keys),
+               zero_rows=len(zero_rows), repeat_bitwise=True, max_abs_err=err,
+               tol=TOL[dtype], ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=bound_ms, bound_by=bound_by)
+    emit("kernel_check", **row)
+    return row
+
+
+def check_gather(torch, case: str, P, W, N, dtype, reps, gen):
+    """page_gather against its plain version, bit for bit; the table holds
+    repeats.  The plain version IS the library call (``index_select``)."""
+    from repro_torch.kernels import page_gather as kmod
+    from repro_torch.kernels.ref import page_gather_ref
+
+    pool = torch.randn((P, W), generator=gen, device="cuda").to(getattr(torch, dtype))
+    table = torch.randint(0, P, (N,), generator=gen, device="cuda", dtype=torch.int32)
+    table[1] = table[0]
+    out = kmod.page_gather(pool, table)
+    torch.cuda.synchronize()
+    plain = page_gather_ref(pool, table)
+    assert torch.equal(out, plain), f"page_gather {case}: differs from index_select"
+    ms = cuda_ms(torch, lambda: kmod.page_gather(pool, table), reps)
+    plain_ms = cuda_ms(torch, lambda: page_gather_ref(pool, table), reps)
+    library_ms = cuda_ms(torch, lambda: torch.index_select(pool, 0, table), reps)
+    bound_ms, bound_by = bound(nbytes(table, out) + out.numel() * out.element_size(), 0.0,
+                               dtype)
+    row = dict(kernel="page_gather", case=case, shape=dict(P=P, W=W, N=N), dtype=dtype,
+               max_abs_err=0.0, bitwise=True, ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+    emit("kernel_check", **row)
+    return row
+
+
 def kernel_checks(torch) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
+    # what cuda_ms gives for a kernel that does almost nothing (one element
+    # added in place): times near it say little about a kernel's work
+    one = torch.zeros(1, device="cuda")
+    emit("timing_floor", op="add_ of one float32 element", ms=cuda_ms(
+        torch, lambda: one.add_(1.0), 200))
     main = {}
     # stablelm-1.6b head: 3 members, bucket 8 x 128 tokens, d 2048, vocab 100352
     main["bank_matmul"] = check_bank(torch, "stablelm-head", 3, 1024, 2048, 100352,
@@ -174,6 +277,19 @@ def kernel_checks(torch) -> dict:
             main["flash_attention"] = row
         check_flash(torch, "gqa-ragged", 2, 200, 8, 2, 128, dtype, None, 50, gen)
         check_flash(torch, "window", 2, 256, 8, 8, 64, dtype, 32, 50, gen)
+    # stablelm-1.6b decode: one layer's KV pool (128 pages of 16 x 32 x 64)
+    # gathered for 8 rows x 8 pages; attention of 8 rows over Smax 128
+    main["page_gather"] = check_gather(torch, "stablelm-decode", 128, 16 * 32 * 64, 64,
+                                       "bfloat16", 200, gen)
+    check_gather(torch, "ragged-f32", 300, 1000, 500, "float32", 200, gen)
+    ragged = [128, 1, 77, 64, 96, 17, 128, 113]
+    main["decode_attention"] = check_decode(torch, "stablelm-decode", 8, 128, 32, 32, 64,
+                                            "bfloat16", ragged, 200, gen)
+    check_decode(torch, "stablelm-decode", 8, 128, 32, 32, 64, "float32", ragged, 200, gen)
+    check_decode(torch, "long-cache", 8, 4096, 32, 32, 64, "bfloat16",
+                 [4096, 1, 3000, 2048, 4095, 512, 1234, 3999], 20, gen)
+    check_decode(torch, "gqa-len0", 4, 1000, 32, 8, 128, "bfloat16", [1000, 0, 513, 64],
+                 50, gen)
     return main
 
 
@@ -298,7 +414,7 @@ def lm_zoo(torch, adapter, cfg) -> dict:
     return zoo
 
 
-def stablelm_phase(torch) -> dict:
+def stablelm_phase(torch) -> tuple:
     from repro_torch.configs import stablelm_1_6b
     from repro_torch.core import ParamStore
     from repro_torch.kernels import ops
@@ -337,7 +453,7 @@ def stablelm_phase(torch) -> dict:
     banked = sum(1 for mb in deadline_microbatches(reqs, BUCKETS)
                  if len({r.instance_id for r in mb.requests}) > 1)
     assert stats["completed"] == len(reqs), stats
-    assert all(n > 0 for n in launches.values()), launches
+    assert launches["bank_matmul"] > 0 and launches["flash_attention"] > 0, launches
     assert stats["suffix_dispatches"] == banked, (stats, banked)
     err = served_vs_direct(torch, adapter, cfg, store, eng, reqs, "bfloat16")
     emit("stablelm_serve", stats=stats, launches=launches,
@@ -346,7 +462,7 @@ def stablelm_phase(torch) -> dict:
          wall_s_per_microbatch=stats["elapsed_s"] / max(stats["microbatches"], 1),
          peak_memory_bytes=peak, max_abs_err_vs_forward=err, tol=TOL["bfloat16"])
     profile_microbatch(torch, eng, cfg, gen, stats["elapsed_s"] / stats["microbatches"])
-    return launches
+    return launches, eng, cfg
 
 
 def profile_microbatch(torch, eng, cfg, gen, served_wall_s: float) -> None:
@@ -369,16 +485,161 @@ def profile_microbatch(torch, eng, cfg, gen, served_wall_s: float) -> None:
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side (kernel) events only: CPU ops also carry the device time
     # of the kernels they launch, which would count it twice
-    rows = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.self_device_time_total > 0]
-    busy_ms = sum(ms for _, ms in rows)
+    busy_ms = sum(ms for _, ms, _ in rows)
     top = sorted(rows, key=lambda r: -r[1])[:8]
     emit("stablelm_profile", microbatches=stats["microbatches"], wall_ms_profiled=wall_ms,
          device_busy_ms=busy_ms, device_idle_share_profiled=max(0.0, 1 - busy_ms / wall_ms),
          served_wall_ms_per_microbatch=served_wall_s * 1e3,
          device_idle_share=max(0.0, 1 - busy_ms / (served_wall_s * 1e3)),
-         top_kernels=[dict(name=n[:90], ms=ms, share=ms / busy_ms) for n, ms in top])
+         top_kernels=[dict(name=n[:90], ms=ms, share=ms / busy_ms, calls=k)
+                      for n, ms, k in top])
+
+
+# ---------------------------------------------------------------------------
+# phase 6: stablelm-1.6b streaming decode
+# ---------------------------------------------------------------------------
+
+
+def decode_requests(cfg, n_per_member: int, seed: int, max_new: int) -> list:
+    """``n_per_member`` requests per member, interleaved, with seeded
+    prompts of PROMPT_LEN tokens."""
+    import numpy as np
+
+    from repro_torch.serving.decode import DecodeRequest
+
+    rng = np.random.default_rng(seed)
+    return [DecodeRequest(m, rng.integers(0, cfg.vocab_size, PROMPT_LEN).astype(np.int32),
+                          max_new_tokens=max_new)
+            for _ in range(n_per_member) for m in LM_MIDS]
+
+
+def replay_check(torch, dec, tol: dict) -> dict:
+    """One completed request per member, replayed teacher-forced through
+    the unpaged decode (batch 1).  The streamed rows ran at the bucket's
+    batch, where cuBLAS may sum in another order than at batch 1, so the
+    two agree to bf16 rounding, not bitwise.  Each logits row is held to
+    ``tol`` after dividing both by the replay row's largest magnitude (the
+    heads' N(0, 1) perturbation puts the logits in the hundreds, so an
+    unscaled absolute 2e-2 would hold them to finer than bf16's step at the
+    row's scale).  Argmax mismatches are counted; one where the replay's
+    top-2 margin exceeds ``atol + rtol * |top logit|`` is a real
+    disagreement and fails the check.  As a control, the same requests are
+    replayed unpaged in every row of a batch of ``max_slots``: that row
+    differs from the batch-1 replay by the batch size alone."""
+    from repro_torch.serving.decode import replay_unpaged
+
+    firsts = {}
+    for c in dec.completions:
+        firsts.setdefault(c.request.instance_id, c)
+    worst = worst_scaled = ctl_scaled = 0.0
+    positions, mismatch_margins, confident, ctl_mismatches = 0, [], 0, 0
+    for c in firsts.values():
+        control = replay_unpaged(dec, c, batch=dec.max_slots)
+        for i, row in enumerate(replay_unpaged(dec, c)):
+            want, got = torch.from_numpy(row), torch.from_numpy(c.logits[i])
+            scale = want.abs().max().item()
+            diff = (got - want).abs().max().item()
+            worst, worst_scaled = max(worst, diff), max(worst_scaled, diff / scale)
+            torch.testing.assert_close(got / scale, want / scale, **tol)
+            ctl = torch.from_numpy(control[i])
+            ctl_scaled = max(ctl_scaled, (ctl - want).abs().max().item() / scale)
+            ctl_mismatches += int(ctl.argmax()) != int(want.argmax())
+            top1, top2 = torch.topk(want, 2).values.tolist()
+            positions += 1
+            if c.tokens[i] != int(want.argmax()):
+                mismatch_margins.append(top1 - top2)
+                confident += top1 - top2 > tol["atol"] + tol["rtol"] * abs(top1)
+    assert confident == 0, (mismatch_margins, confident)
+    return dict(requests=len(firsts), positions=positions, max_abs_err=worst,
+                max_abs_err_over_row_max=worst_scaled, tol=tol,
+                argmax_mismatches=len(mismatch_margins),
+                mismatch_margins=mismatch_margins, confident_argmax_mismatches=confident,
+                batch_control=dict(batch=dec.max_slots, max_abs_err_over_row_max=ctl_scaled,
+                                   argmax_mismatches=ctl_mismatches))
+
+
+def decode_phase(torch, eng, cfg) -> dict:
+    """Streaming decode of the merged stablelm group; returns the kernel
+    launches of the streaming run."""
+    from repro_torch.kernels import ops
+
+    reqs = decode_requests(cfg, REQS_PER_MEMBER, 200, NEW_TOKENS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_kernel_launches()
+    t0 = time.perf_counter()
+    stats = eng.serve_decode(reqs, horizon_s=900.0, record_logits=True, **DECODE_KW)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = ops.kernel_launches()
+    peak = torch.cuda.max_memory_allocated()
+    dec = eng.last_decoder
+    pool = next(iter(dec._pools.values()))
+    assert stats["completed"] == len(reqs), stats
+    assert stats["lost_in_flight"] == 0 and stats["unadmitted"] == 0, stats
+    assert stats["pool_identity_ok"], stats
+    assert stats["trunk_dispatches"] == stats["bank_dispatches"] == stats["group_steps"] > 0, stats
+    assert stats["singleton_dispatches"] == 0, stats
+    for name in ("page_gather", "decode_attention", "bank_matmul"):
+        assert launches[name] > 0, launches
+    assert launches["page_gather"] == 2 * launches["decode_attention"], launches
+    replay = replay_check(torch, dec, TOL["bfloat16"])
+    emit("stablelm_decode", requests=len(reqs), prompt_tokens=PROMPT_LEN,
+         new_tokens=NEW_TOKENS, knobs={k: v for k, v in DECODE_KW.items()}, stats=stats,
+         launches=launches, tokens_per_s=stats["tokens_per_s"],
+         wall_s_per_step=stats["elapsed_s"] / stats["steps"],
+         serve_decode_wall_s_with_warmup=wall_s,
+         kv_pool_bytes=pool.k.numel() * pool.k.element_size() * 2,
+         pool_high_water_pages=stats["pool_high_water_pages"], peak_memory_bytes=peak,
+         replay=replay)
+    profile_decode_steps(torch, eng, cfg)
+    return launches
+
+
+def profile_decode_steps(torch, eng, cfg, timed: int = 5) -> None:
+    """With all 8 slots past their prompts (every slot emits a token each
+    step): ``timed`` pure decode steps on the host clock, then one more
+    under ``torch.profiler`` (device time by kernel, device idle share)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    first = PROMPT_LEN // (DECODE_KW["page_size"] + 1) + 2  # first step past every prompt
+    marks, prof = {}, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+    def on_step(dec, step):
+        if step in (first, first + timed, first + timed + 1):
+            torch.cuda.synchronize()
+            marks[step] = (time.perf_counter(), len(dec.slots),
+                           sum(len(s.out_tokens) > 0 for s in dec.slots.values()))
+        if step == first + timed:
+            prof.start()
+            marks["profiled_from"] = time.perf_counter()  # after the profiler's start-up
+        elif step == first + timed + 1:
+            prof.stop()
+
+    reqs = decode_requests(cfg, 3, 300, first + timed + 4)[:DECODE_KW["max_slots"]]
+    dec_stats = eng.serve_decode(reqs, horizon_s=900.0, on_step=on_step, **DECODE_KW)
+    (t_a, live_a, emit_a), (t_b, _, _), (t_c, live_c, emit_c) = (
+        marks[first], marks[first + timed], marks[first + timed + 1])
+    assert live_a == emit_a == live_c == emit_c == DECODE_KW["max_slots"], marks
+    step_ms = (t_b - t_a) / timed * 1e3
+    wall_ms = (t_c - marks["profiled_from"]) * 1e3
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in device]
+    busy_ms = sum(ms for _, ms, _ in rows)
+    top = sorted(rows, key=lambda r: -r[1])[:10]
+    emit("stablelm_decode_profile", slots=DECODE_KW["max_slots"], timed_steps=timed,
+         wall_ms_per_decode_step=step_ms,
+         tokens_per_s_decode_steps=DECODE_KW["max_slots"] / step_ms * 1e3,
+         wall_ms_profiled=wall_ms, device_busy_ms=busy_ms,
+         device_kernels_per_step=sum(e.count for e in device),
+         device_idle_share_profiled=max(0.0, 1 - busy_ms / wall_ms),
+         device_idle_share=max(0.0, 1 - busy_ms / step_ms), completed=dec_stats["completed"],
+         top_kernels=[dict(name=n[:90], ms=ms, share=ms / busy_ms, calls=k)
+                      for n, ms, k in top])
 
 
 # ---------------------------------------------------------------------------
@@ -413,7 +674,9 @@ def main() -> int:
 
     main_rows = kernel_checks(torch)
     small_cnn_phase(torch)
-    launches = stablelm_phase(torch)
+    launches, eng, cfg = stablelm_phase(torch)
+    launches.update({k: v for k, v in decode_phase(torch, eng, cfg).items()
+                     if k in ("page_gather", "decode_attention")})
 
     kernels = []
     for name, row in main_rows.items():

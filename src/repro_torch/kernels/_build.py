@@ -98,13 +98,18 @@ def load_library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        vp, ci, cf, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
         lib.bank_matmul_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci,
                                            ci, ci, vp]
         lib.bank_matmul_launch.restype = ci
         lib.flash_attention_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci,
                                                ci, ci, ci, cf, ci, vp]
         lib.flash_attention_launch.restype = ci
+        lib.page_gather_launch.argtypes = [vp, vp, vp, cl, cl, cl, vp]
+        lib.page_gather_launch.restype = ci
+        lib.decode_attention_launch.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci,
+                                                ci, ci, cf, ci, vp]
+        lib.decode_attention_launch.restype = ci
         _lib = lib
     return _lib
 

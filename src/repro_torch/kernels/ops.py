@@ -16,7 +16,9 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import bank_matmul as _bank_mod
+from repro_torch.kernels import decode_attention as _decode_mod
 from repro_torch.kernels import flash_attention as _flash_mod
+from repro_torch.kernels import page_gather as _gather_mod
 from repro_torch.kernels import ref as _ref
 
 DISPATCH_COUNTS: dict = {}
@@ -54,6 +56,23 @@ def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None,
                                     scale=scale)
 
 
+def decode_attention(q, k_cache, v_cache, lengths, scale: Optional[float] = None):
+    """One-query GQA attention against a cache up to a per-row length
+    (int32 ``(B,)``); a row of length 0 gives exact zeros."""
+    _count("decode_attention")
+    if _on_cuda(q, "decode_attention"):
+        return _decode_mod.decode_attention(q, k_cache, v_cache, lengths, scale=scale)
+    return _ref.decode_attention_ref(q, k_cache, v_cache, lengths, scale=scale)
+
+
+def page_gather(pool, page_table):
+    """out[i] = pool[page_table[i]]: one paged-KV view per dispatch."""
+    _count("page_gather")
+    if _on_cuda(pool, "page_gather"):
+        return _gather_mod.page_gather(pool, page_table)
+    return _ref.page_gather_ref(pool, page_table)
+
+
 def bank_matmul(x, w, b=None):
     """Grouped GEMM over a leading bank axis: out[n] = x[n] @ w[n] (+ b[n]),
     with x either (N, M, K) banked or (M, K) broadcast — the one-dispatch
@@ -87,12 +106,22 @@ OP_TABLE: dict = {
                _ref.flash_attention_ref, flash_attention, ("q", "k", "v"),
                source="src/repro_torch/kernels/csrc/flash_attention.cu",
                replaces="src/repro/kernels/flash_attention.py:127"),
+        OpSpec("decode_attention", _decode_mod.decode_attention,
+               _ref.decode_attention_ref, decode_attention,
+               ("q", "k_cache", "v_cache", "lengths"),
+               source="src/repro_torch/kernels/csrc/decode_attention.cu",
+               replaces="src/repro/kernels/decode_attention.py:98"),
+        OpSpec("page_gather", _gather_mod.page_gather, _ref.page_gather_ref,
+               page_gather, ("pool", "page_table"),
+               source="src/repro_torch/kernels/csrc/page_gather.cu",
+               replaces="src/repro/kernels/page_gather.py:41"),
         OpSpec("bank_matmul", _bank_mod.bank_matmul, _ref.bank_matmul_ref,
                bank_matmul, ("x", "w"), optional_args=("b",),
                source="src/repro_torch/kernels/csrc/bank_matmul.cu",
                replaces="src/repro/kernels/bank_matmul.py:123"),
     )
 }
+
 
 def kernel_launches() -> dict:
     """{op_name: CUDA kernel launches since the last reset}, read from the

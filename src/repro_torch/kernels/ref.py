@@ -39,6 +39,41 @@ def flash_attention_ref(
     return out.reshape(B, S, Hq, D).to(q.dtype)
 
 
+def decode_attention_ref(
+    q: torch.Tensor,  # (B, Hq, D) single-step query
+    k_cache: torch.Tensor,  # (B, Smax, Hkv, D)
+    v_cache: torch.Tensor,  # (B, Smax, Hkv, D)
+    lengths: torch.Tensor,  # (B,) valid prefix length per row
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    B, Hq, D = q.shape
+    Smax, Hkv = k_cache.shape[1], k_cache.shape[2]
+    G = Hq // Hkv
+    scale = (1.0 / math.sqrt(D)) if scale is None else scale
+    qg = q.reshape(B, Hkv, G, D).float()
+    scores = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache.float()) * scale
+    valid = (torch.arange(Smax, device=q.device)[None, :]
+             < lengths.to(q.device)[:, None])  # (B, Smax)
+    scores = scores.masked_fill(~valid[:, None, None, :], float("-inf"))
+    # softmax made safe for fully-masked rows (length 0): the kernel's online
+    # softmax emits exact zeros there (l == 0 guard), so this version must
+    # too -- torch.softmax would give NaN from exp(-inf - (-inf))
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - torch.where(torch.isfinite(m), m, torch.zeros_like(m)))
+    l = p.sum(dim=-1, keepdim=True)
+    probs = p / torch.where(l == 0.0, torch.ones_like(l), l)
+    out = torch.einsum("bhgk,bkhd->bhgd", probs, v_cache.float())
+    return out.reshape(B, Hq, D).to(q.dtype)
+
+
+def page_gather_ref(
+    pool: torch.Tensor,  # (P, page)
+    page_table: torch.Tensor,  # (N,) int32 indices into pool
+) -> torch.Tensor:
+    """out[i] = pool[page_table[i]], in the pool's dtype."""
+    return pool.index_select(0, page_table)
+
+
 def bank_matmul_ref(
     x: torch.Tensor,  # (N, M, K) banked, or (M, K) broadcast across the bank
     w: torch.Tensor,  # (N, K, F) stacked private weights

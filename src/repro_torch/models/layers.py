@@ -120,6 +120,51 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 
 
 # ---------------------------------------------------------------------------
+# Attention (plain version, for multi-token decode steps against a cache)
+# ---------------------------------------------------------------------------
+
+
+def attention_mask(q_positions: torch.Tensor, kv_positions: torch.Tensor,
+                   causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
+    """Boolean mask (B, 1, Sq, Skv): True = attend.  ``window`` gives
+    sliding-window attention: attend iff 0 <= q_pos - kv_pos < window."""
+    qp = q_positions[:, None, :, None]
+    kp = kv_positions[:, None, None, :]
+    mask = torch.ones(torch.broadcast_shapes(qp.shape, kp.shape), dtype=torch.bool,
+                      device=qp.device)
+    if causal:
+        mask = mask & (kp <= qp)
+    if window is not None:
+        mask = mask & (qp - kp < window)
+    return mask
+
+
+def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None, scale: Optional[float] = None,
+                  logit_softcap: Optional[float] = None) -> torch.Tensor:
+    """Grouped-query attention: q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D), mask
+    (B, 1, Sq, Skv).  Scores and P @ V accumulate in float32 (bf16 inputs are
+    widened first: their products are exact in float32); the probabilities
+    are rounded to v's dtype before P @ V, as the JAX package does.  Returns
+    (B, Sq, Hq, D) in q's dtype."""
+    B, Sq, Hq, D = q.shape
+    Hkv = k.shape[2]
+    if Hq % Hkv:
+        raise ValueError(f"Hq={Hq} not a multiple of Hkv={Hkv}")
+    G = Hq // Hkv
+    scale = (1.0 / math.sqrt(D)) if scale is None else scale
+    qg = q.reshape(B, Sq, Hkv, G, D)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
+    if logit_softcap is not None:
+        scores = torch.tanh(scores / logit_softcap) * logit_softcap
+    if mask is not None:
+        scores = scores.masked_fill(~mask[:, :, None, :, :], torch.finfo(torch.float32).min)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs.float(), v.float())
+    return out.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
 # Dense projections / FFN
 # ---------------------------------------------------------------------------
 

@@ -7,6 +7,7 @@ behind one interface:
     a = get_adapter("small_cnn")
     recs  = a.records(cfg, params, model_id)   # signature extraction
     split = a.split(cfg)                       # prefix/suffix serving
+    ds = a.decode_split(cfg)                   # paged streaming decode
 """
 from __future__ import annotations
 
@@ -38,11 +39,45 @@ class PrefixSplit:
     bank_suffix: Optional[Callable] = None
 
 
+@dataclasses.dataclass(frozen=True)
+class DecodeSplit:
+    """Streaming-decode serving surface of a splittable adapter — the
+    token-by-token twin of :class:`PrefixSplit`.
+
+    ``trunk_step(params, pool, tables, lengths, tokens) -> (hidden, pool)``
+    advances every row of a paged batch by ONE token through the mergeable
+    trunk; ``head(params, hidden) -> logits`` is the private fan-out, so
+    trunk_step + head is the composed ``step``.  ``step`` is the full paged
+    per-model path (singleton groups); ``step_unpaged`` /
+    ``init_cache(batch, max_len, device=...)`` are the family's
+    contiguous-cache decode, the replay oracle.  ``init_pool(num_pages,
+    page_size, device=...)`` allocates the device-side pool.
+    ``bank_head(bank_params, hidden) -> (N, B, 1, V)``, when set, fans every
+    congruent private head out in one dispatch.  ``trunk_paths`` /
+    ``head_paths`` / ``head_signature`` are the PrefixSplit tiers, so decode
+    grouping reuses the engine's shared-prefix congruence unchanged."""
+
+    trunk_step: Callable  # (params, pool, tables, lengths, tokens)
+    head: Callable  # (params, hidden) -> logits
+    step: Callable  # (params, pool, tables, lengths, tokens) paged full step
+    step_unpaged: Callable  # (params, cache, tokens) -> (logits, cache)
+    init_pool: Callable  # (num_pages, page_size, device=None) -> pool
+    init_cache: Callable  # (batch, max_len, device=None) -> contiguous cache
+    trunk_paths: frozenset
+    head_paths: Optional[frozenset] = None
+    head_signature: Optional[tuple] = None
+    bank_head: Optional[Callable] = None  # (bank_params, hidden) -> (N, ...)
+    # chunked prompt admission: (params, pool, tables, lengths, tokens (B, C))
+    # -> (hidden (B, C, d), pool), C sequential trunk steps in one dispatch
+    prefill_chunk: Optional[Callable] = None
+
+
 class MergeableAdapter:
     """One model family's view of the merge pipeline."""
 
     name: str = "adapter"
     can_split: bool = False
+    can_decode: bool = False
 
     def __init__(self):
         self._bound: dict = {}  # (kind, cfg) -> cached cfg-bound artifact
@@ -94,6 +129,19 @@ class MergeableAdapter:
     def _build_split(self, cfg) -> PrefixSplit:
         raise NotImplementedError(f"{self.name}: no prefix/suffix split")
 
+    def decode_split(self, cfg) -> DecodeSplit:
+        """Streaming-decode split, cached per cfg like :meth:`split`, so all
+        members of a group hand the decoder the same function objects."""
+        key = ("decode_split", cfg)
+        ds = self._bound.get(key)
+        if ds is None:
+            ds = self._build_decode_split(cfg)
+            self._bound[key] = ds
+        return ds
+
+    def _build_decode_split(self, cfg) -> DecodeSplit:
+        raise NotImplementedError(f"{self.name}: no streaming decode split")
+
     def bound_forward(self, cfg) -> Callable:
         """(params, x) forward closure, cached per cfg."""
         key = ("forward", cfg)
@@ -144,6 +192,7 @@ class DenseLMAdapter(MergeableAdapter):
 
     name = "dense"
     can_split = True
+    can_decode = True
 
     def default_config(self):
         return transformer.DenseLMConfig(
@@ -180,6 +229,41 @@ class DenseLMAdapter(MergeableAdapter):
         return PrefixSplit(prefix, suffix, paths,
                            suffix_paths=transformer.head_paths(ep),
                            bank_suffix=bank_suffix)
+
+    def _build_decode_split(self, cfg) -> DecodeSplit:
+        sp = self.split(cfg)  # the same trunk/head congruence tiers
+
+        def trunk_step(params, pool, tables, lengths, tokens, _cfg=cfg):
+            return transformer.paged_trunk_step(_cfg, params, pool, tables, lengths, tokens)
+
+        def head_fn(params, hidden, _cfg=cfg):
+            return transformer.head(_cfg, params, hidden)
+
+        def step(params, pool, tables, lengths, tokens, _cfg=cfg):
+            return transformer.paged_decode_step(_cfg, params, pool, tables, lengths, tokens)
+
+        def step_unpaged(params, cache, tokens, _cfg=cfg):
+            return transformer.decode_step(_cfg, params, cache, tokens)
+
+        def init_pool(num_pages, page_size, device=None, _cfg=cfg):
+            return transformer.init_kv_pool(_cfg, num_pages, page_size, device=device)
+
+        def init_cache(batch, max_len, device=None, _cfg=cfg):
+            return transformer.init_cache(_cfg, batch, max_len, device=device)
+
+        bank = None
+        if sp.bank_suffix is not None:
+            def bank(bank_params, hidden, _cfg=cfg):
+                return transformer.bank_head(_cfg, bank_params, hidden)
+
+        def prefill_chunk(params, pool, tables, lengths, tokens, _cfg=cfg):
+            return transformer.paged_prefill_chunk(_cfg, params, pool, tables, lengths,
+                                                   tokens)
+
+        return DecodeSplit(trunk_step, head_fn, step, step_unpaged, init_pool, init_cache,
+                           sp.prefix_paths, head_paths=sp.suffix_paths,
+                           head_signature=sp.suffix_signature, bank_head=bank,
+                           prefill_chunk=prefill_chunk)
 
 
 ADAPTERS: dict = {}

@@ -1,11 +1,17 @@
 """Dense decoder-only transformer (GQA) — the port of
-``repro.models.transformer`` for merge-and-serve (decode waits for a later
-slice).
+``repro.models.transformer`` for merge-and-serve and paged streaming decode
+(blocked prefill waits for a later slice).
 
 Parameters are nested dicts with per-layer blocks ``blocks/<i>/...`` (the
-JAX package's ``scan_layers=False`` layout).  Attention goes through
-``kernels.ops.flash_attention``: the Hopper kernel on a CUDA tensor, the
-plain version on a CPU tensor.
+JAX package's ``scan_layers=False`` layout).  Full-sequence attention goes
+through ``kernels.ops.flash_attention``, one-token decode attention through
+``ops.decode_attention`` and the paged KV view through ``ops.page_gather``:
+the Hopper kernel on a CUDA tensor, the plain version on a CPU tensor.
+
+Where the JAX package returns updated copies of a KV cache or pool, this
+port writes into it in place and returns the same tensors: updating the
+stacked pool out of place would copy all of it (0.4 GB at stablelm-1.6b's
+serving shape) once per layer per step.
 """
 from __future__ import annotations
 
@@ -42,10 +48,17 @@ class DenseLMConfig:
     window: Optional[int] = None  # sliding-window attention (all layers)
     logit_softcap: Optional[float] = None
     dtype: str = "float32"  # numpy dtype name
+    # decode-time KV head replication factor (1 = none): the cache stores
+    # every kv head kv_repl times
+    kv_repl: int = 1
 
     @property
     def padded_vocab(self) -> int:
         return L.padded_vocab(self.vocab_size, self.vocab_multiple)
+
+    @property
+    def kv_stored_heads(self) -> int:
+        return self.n_kv_heads * self.kv_repl
 
 
 # ---------------------------------------------------------------------------
@@ -200,3 +213,188 @@ def bank_head(cfg: DenseLMConfig, bank_params: dict, x: torch.Tensor) -> torch.T
     logits = kops.bank_matmul(xn.reshape(n_bank, B * S, d),
                               bank_params["lm_head"]["w"])
     return _softcap(cfg, logits.reshape(n_bank, B, S, -1))
+
+
+# ---------------------------------------------------------------------------
+# KV cache + decode
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: DenseLMConfig, batch: int, max_len: int, dtype=None,
+               device=None) -> dict:
+    """Contiguous KV cache over layers: k/v (L, B, Smax, Hkv*kv_repl, D) of
+    zeros, and ``length``, the tokens already cached (a Python int)."""
+    device = resolve_device(device)
+    dt = torch_dtype(dtype or cfg.dtype)
+    shape = (cfg.n_layers, batch, max_len, cfg.kv_stored_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device),
+            "length": 0}
+
+
+def _write_kv(cache_k, cache_v, k, v, start: int, kv_repl: int):
+    """Write new k/v (B, S, Hkv, D) into one layer's cache at ``start``, in
+    place."""
+    if kv_repl > 1:
+        k = k.repeat_interleave(kv_repl, dim=2)
+        v = v.repeat_interleave(kv_repl, dim=2)
+    S = k.shape[1]
+    cache_k[:, start:start + S] = k.to(cache_k.dtype)
+    cache_v[:, start:start + S] = v.to(cache_v.dtype)
+    return cache_k, cache_v
+
+
+def _block_decode(cfg: DenseLMConfig, p: dict, cache_l: dict, x: torch.Tensor,
+                  positions: torch.Tensor, length: int):
+    """Single-step (or chunked) decode block against one cache layer.
+    x (B, S_new, d); cache k/v (B, Smax, Hs, D).  One token without a window
+    goes through ``ops.decode_attention``; more tokens through the plain
+    masked attention.  Returns (x, cache_l)."""
+    B, Sn, _ = x.shape
+    h = L.apply_norm(cfg.norm, x, p.get("ln1", {}))
+    q, k, v = _qkv(cfg, p["attn"], h, positions)
+    ck, cv = _write_kv(cache_l["k"], cache_l["v"], k, v, length, cfg.kv_repl)
+    if Sn == 1 and cfg.window is None:
+        lengths = torch.full((B,), length + 1, dtype=torch.int32, device=x.device)
+        attn = kops.decode_attention(q[:, 0].contiguous(), ck, cv, lengths)[:, None]
+    else:
+        Smax = ck.shape[1]
+        kv_positions = torch.arange(Smax, dtype=torch.int32, device=x.device).expand(B, Smax)
+        mask = L.attention_mask(positions, kv_positions, causal=True, window=cfg.window)
+        # mask out cache slots beyond the written prefix
+        valid = kv_positions < (length + Sn)
+        mask = mask & valid[:, None, None, :]
+        attn = L.gqa_attention(q, ck, cv, mask)
+    x = x + L.dense(attn.reshape(B, Sn, -1), p["attn"]["wo"])
+    h = L.apply_norm(cfg.norm, x, p.get("ln2", {}))
+    x = x + L.ffn(h, p["mlp"], act=cfg.act, gated=cfg.gated_ffn)
+    return x, {"k": ck, "v": cv}
+
+
+def decode_step(cfg: DenseLMConfig, params: dict, cache: dict,
+                tokens: torch.Tensor) -> tuple:
+    """One decode step, tokens (B, S_new) (S_new = 1 for autoregressive
+    decode).  Writes the new k/v into ``cache`` in place; returns (logits
+    (B, S_new, V) float32, cache with ``length`` advanced)."""
+    B, Sn = tokens.shape
+    length = cache["length"]
+    positions = (length + torch.arange(Sn, dtype=torch.int32,
+                                       device=tokens.device)).expand(B, Sn)
+    x = L.embed(tokens, params["embed"]["table"])
+    ck, cv = cache["k"], cache["v"]
+    for i in range(cfg.n_layers):
+        x, _ = _block_decode(cfg, params["blocks"][str(i)], {"k": ck[i], "v": cv[i]},
+                             x, positions, length)
+    return head(cfg, params, x), {"k": ck, "v": cv, "length": length + Sn}
+
+
+# ---------------------------------------------------------------------------
+# Paged KV decode: pool storage + per-request page tables
+# ---------------------------------------------------------------------------
+
+
+def init_kv_pool(cfg: DenseLMConfig, num_pages: int, page_size: int, dtype=None,
+                 device=None) -> dict:
+    """Paged KV pool shared by every in-flight request of one config:
+    k/v (L, P, page, Hs, D).  Page ownership (tables, free list, epochs)
+    lives with the serving layer (``serving.decode.PagedKVPool``)."""
+    device = resolve_device(device)
+    dt = torch_dtype(dtype or cfg.dtype)
+    shape = (cfg.n_layers, num_pages, page_size, cfg.kv_stored_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def _paged_write(pool_k, pool_v, k, v, tables, lengths, kv_repl: int):
+    """Scatter one new token's k/v (B, 1, Hkv, D) into each row's current
+    page slot of one pool layer (P, page, Hs, D), in place.  Padded batch
+    rows may duplicate a real row: the duplicate write carries identical
+    values, so the result is deterministic."""
+    if kv_repl > 1:
+        k = k.repeat_interleave(kv_repl, dim=2)
+        v = v.repeat_interleave(kv_repl, dim=2)
+    page = pool_k.shape[1]
+    rows = torch.arange(tables.shape[0], device=tables.device)
+    page_ix = tables[rows, lengths // page]
+    slot = lengths % page
+    pool_k.index_put_((page_ix, slot), k[:, 0].to(pool_k.dtype))
+    pool_v.index_put_((page_ix, slot), v[:, 0].to(pool_v.dtype))
+    return pool_k, pool_v
+
+
+def _paged_view(pool_x: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """Assemble per-row contiguous caches (B, maxp*page, Hs, D) from one pool
+    layer in ONE ``ops.page_gather`` dispatch on the (P, page*Hs*D) flat
+    view.  The row layout is exactly ``init_cache``'s with Smax =
+    maxp*page; whatever a page holds beyond a row's valid length is masked
+    by decode attention, so stale tenants of reused pages are invisible."""
+    P, page, Hs, D = pool_x.shape
+    B, maxp = tables.shape
+    flat = pool_x.reshape(P, page * Hs * D)
+    out = kops.page_gather(flat, tables.reshape(-1))
+    return out.reshape(B, maxp * page, Hs, D)
+
+
+def _block_decode_paged(cfg: DenseLMConfig, p: dict, pool_l: dict, x: torch.Tensor,
+                        tables: torch.Tensor, lengths: torch.Tensor):
+    """Single-token decode block against one paged pool layer.  x (B, 1, d);
+    pool_l k/v (P, page, Hs, D); tables (B, maxp) int32; lengths (B,) int32
+    tokens already cached per row (this token lands at index ``lengths``).
+    Op for op the one-token path of :func:`_block_decode` on the gathered
+    contiguous view."""
+    B, Sn, _ = x.shape
+    h = L.apply_norm(cfg.norm, x, p.get("ln1", {}))
+    q, k, v = _qkv(cfg, p["attn"], h, lengths[:, None])
+    pk, pv = _paged_write(pool_l["k"], pool_l["v"], k, v, tables, lengths, cfg.kv_repl)
+    ck = _paged_view(pk, tables)
+    cv = _paged_view(pv, tables)
+    attn = kops.decode_attention(q[:, 0].contiguous(), ck, cv, lengths + 1)[:, None]
+    x = x + L.dense(attn.reshape(B, Sn, -1), p["attn"]["wo"])
+    h = L.apply_norm(cfg.norm, x, p.get("ln2", {}))
+    x = x + L.ffn(h, p["mlp"], act=cfg.act, gated=cfg.gated_ffn)
+    return x, {"k": pk, "v": pv}
+
+
+def paged_trunk_step(cfg: DenseLMConfig, params: dict, pool: dict, tables: torch.Tensor,
+                     lengths: torch.Tensor, tokens: torch.Tensor) -> tuple:
+    """Shared-trunk paged decode step — embedding + blocks, ONE new token per
+    row.  tokens (B,); pool from :func:`init_kv_pool`; tables (B, maxp) page
+    indices per row; lengths (B,) tokens already cached.  Writes the pool in
+    place; returns (hidden (B, 1, d), pool).  Every member of a merged group
+    shares this step; private heads fan out via :func:`head` or
+    :func:`bank_head`."""
+    if cfg.window is not None:
+        raise ValueError("paged decode requires full attention (window=None)")
+    tables = tables.to(torch.int32).contiguous()
+    lengths = lengths.to(torch.int32)
+    x = L.embed(tokens[:, None], params["embed"]["table"])
+    pk, pv = pool["k"], pool["v"]
+    for i in range(cfg.n_layers):
+        x, _ = _block_decode_paged(cfg, params["blocks"][str(i)],
+                                   {"k": pk[i], "v": pv[i]}, x, tables, lengths)
+    return x, {"k": pk, "v": pv}
+
+
+def paged_prefill_chunk(cfg: DenseLMConfig, params: dict, pool: dict,
+                        tables: torch.Tensor, lengths: torch.Tensor,
+                        tokens: torch.Tensor) -> tuple:
+    """Chunked prompt admission: ingest ``tokens`` (B, C) prompt tokens per
+    row as C sequential :func:`paged_trunk_step` calls in one dispatch of
+    the decoder, so tokens and logits stay identical to token-by-token
+    prefill.  Returns (hidden (B, C, d), pool)."""
+    C = tokens.shape[1]
+    lengths = lengths.to(torch.int32)
+    hs = []
+    for c in range(C):
+        h, pool = paged_trunk_step(cfg, params, pool, tables, lengths + c, tokens[:, c])
+        hs.append(h)
+    return torch.cat(hs, dim=1), pool
+
+
+def paged_decode_step(cfg: DenseLMConfig, params: dict, pool: dict,
+                      tables: torch.Tensor, lengths: torch.Tensor,
+                      tokens: torch.Tensor) -> tuple:
+    """Full paged decode step (shared trunk + this model's private head), the
+    paged twin of :func:`decode_step`.  Returns (logits (B, 1, V), pool)."""
+    x, pool = paged_trunk_step(cfg, params, pool, tables, lengths, tokens)
+    return head(cfg, params, x), pool

@@ -1,0 +1,611 @@
+"""Streaming decode serving: paged KV cache + continuous batching over a
+merged ParamStore (the port of ``repro.serving.decode``).
+
+A merged group shares one physical trunk, so token-by-token generation for
+EVERY member advances in a single trunk dispatch per step, with the private
+unembed heads fanned out through the suffix bank (one ``ops.bank_matmul``
+dispatch).  The KV side mirrors the weight side's page discipline:
+
+* :class:`PagedKVPool` — fixed-size pages in one device-resident pool
+  (``transformer.init_kv_pool`` layout), per-request page tables, a free
+  list, and worst-case page *reservations* at admission so an admitted
+  request can never hit pool exhaustion mid-decode.  The accounting identity
+  ``allocated == in_flight + freed`` is an invariant.
+* :class:`StreamingDecoder` — the continuous-batching loop: every step
+  admits queued requests into free slots, advances each shared-prefix
+  group's live rows by one token (prompt tokens are consumed through the
+  same decode path, mixed prefill/decode), and retires finished requests —
+  never draining the in-flight batch.
+* a store rebinding (``ParamStore.merge_group`` / ``unmerge``) moves the
+  store's binding epoch; the decoder notices on its next step, bumps every
+  pool's epoch once, and re-reads ``prefix_groups()`` so re-merged trunks
+  coalesce immediately.  In-flight page tables and lengths survive.
+
+This port is single-device: the bank fan-out calls ``bank_head`` directly
+(the JAX package routes it through the engine's mesh-sharding wrapper) and
+admission does not do per-shard DMA accounting; both belong to the
+placement tier, which comes later.  PyTorch runs eagerly, so the pool is
+written in place and there is nothing to compile per shape.
+
+Paged == unpaged contract: the paged path gathers pages into exactly the
+contiguous ``init_cache`` layout (Smax = max_len) and both paths route
+attention through ``ops.decode_attention``, so every generated token and
+its logits match a standalone unpaged ``decode_step`` replay of the same
+request (:func:`verify_bitwise`) wherever the dense products give the same
+bits for a row at batch 1 and at the bucket's batch.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from collections import deque
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.serving.executor import MergeAwareEngine
+from repro_torch.serving.workload import bucket_for
+from repro_torch.utils.tree import flatten_paths
+
+
+@dataclasses.dataclass
+class DecodeRequest:
+    instance_id: str
+    prompt: Any  # (S,) int token ids
+    max_new_tokens: int
+    arrival_s: float = 0.0
+    deadline_s: float = float("inf")
+    meta: Any = None
+
+
+@dataclasses.dataclass
+class DecodeCompletion:
+    request: DecodeRequest
+    tokens: list  # generated token ids (greedy argmax, len == max_new_tokens)
+    finished_s: float
+    steps: int = 0  # engine steps this request was live for
+    logits: Optional[list] = None  # per-token float32 logits rows (record_logits)
+    admit_epoch: int = -1
+    retire_epoch: int = -1
+
+
+class PoolExhausted(RuntimeError):
+    """A page allocation failed — only reachable if the reservation
+    discipline is bypassed (admitting without ``can_admit``)."""
+
+
+class PagedKVPool:
+    """Page ownership for one device-side KV pool.
+
+    The arrays (``k``/``v``: (L, P, page, Hs, D)) live here; tables map a
+    live request id to the ordered page list backing its sequence.  Admission
+    RESERVES the worst case (ceil((prompt + max_new) / page)) so ``ensure``
+    can always extend a live request; pages allocate lazily as the sequence
+    grows and return to the free list on :meth:`release`.
+
+    ``epoch`` is the rebinding invalidation counter: the decoder bumps it
+    once per store binding epoch move — live tables survive (KV state is
+    request state, not weight-derived cache), but anything derived per epoch
+    must re-key on it.
+    """
+
+    def __init__(self, init_pool: Callable, num_pages: int, page_size: int):
+        kv = init_pool(num_pages, page_size)
+        self.k, self.v = kv["k"], kv["v"]
+        self.num_pages = num_pages
+        self.page_size = page_size
+        # pop() takes from the tail: keep it ascending so early requests get
+        # low page ids (deterministic, easy to eyeball in tests)
+        self._free = list(range(num_pages - 1, -1, -1))
+        self.tables: dict = {}  # rid -> [page_idx, ...] (live requests only)
+        self._reserved: dict = {}  # rid -> worst-case page count
+        self.allocated_pages = 0  # lifetime pages handed out
+        self.freed_pages = 0  # lifetime pages returned
+        self.high_water = 0
+        self.epoch = 0
+
+    # -- accounting -----------------------------------------------------------
+
+    def in_flight_pages(self) -> int:
+        return sum(len(t) for t in self.tables.values())
+
+    def identity_ok(self) -> bool:
+        """allocated == in_flight + freed, free list consistent, and no page
+        referenced by two live requests."""
+        live = [p for t in self.tables.values() for p in t]
+        return (self.allocated_pages == self.in_flight_pages() + self.freed_pages
+                and len(live) == len(set(live))
+                and not (set(live) & set(self._free))
+                and len(self._free) + len(live) == self.num_pages)
+
+    def pages_for(self, tokens: int) -> int:
+        return -(-max(tokens, 1) // self.page_size)  # ceil, min 1
+
+    def _available(self) -> int:
+        """Free pages not spoken for by live requests' outstanding
+        reservations — the admission headroom that guarantees no mid-flight
+        exhaustion."""
+        outstanding = sum(
+            max(0, self._reserved[r] - len(self.tables[r]))
+            for r in self.tables)
+        return len(self._free) - outstanding
+
+    def can_admit(self, tokens: int) -> bool:
+        return self._available() >= self.pages_for(tokens)
+
+    # -- lifecycle ------------------------------------------------------------
+
+    def admit(self, rid, tokens: int) -> None:
+        if rid in self.tables:
+            raise ValueError(f"request {rid} already admitted")
+        need = self.pages_for(tokens)
+        if self._available() < need:
+            raise PoolExhausted(f"admit({rid}): {need} pages reserved, "
+                                f"{self._available()} available")
+        self.tables[rid] = []
+        self._reserved[rid] = need
+        self.ensure(rid, min(tokens, self.page_size))  # first page up front
+
+    def ensure(self, rid, tokens: int) -> None:
+        """Grow ``rid``'s table until it covers ``tokens`` positions."""
+        table = self.tables[rid]
+        while len(table) * self.page_size < tokens:
+            if not self._free:
+                raise PoolExhausted(f"ensure({rid}): free list empty")
+            table.append(self._free.pop())
+            self.allocated_pages += 1
+        self.high_water = max(self.high_water, self.in_flight_pages())
+
+    def release(self, rid) -> None:
+        pages = self.tables.pop(rid)
+        self._reserved.pop(rid, None)
+        self.freed_pages += len(pages)
+        # return in reverse so the free list stays roughly LRU-ordered
+        self._free.extend(reversed(pages))
+
+    def bump_epoch(self) -> None:
+        self.epoch += 1
+
+    def table_rows(self, rids: list, max_pages: int) -> np.ndarray:
+        """(B, max_pages) int32 page-table rows, short tables padded with
+        page 0 — padding entries are only ever READ by the gather and their
+        contents are masked by decode attention."""
+        out = np.zeros((len(rids), max_pages), np.int32)
+        for i, rid in enumerate(rids):
+            t = self.tables[rid]
+            out[i, : len(t)] = t
+        return out
+
+
+@dataclasses.dataclass
+class _Slot:
+    rid: int
+    request: DecodeRequest
+    prompt: list
+    pos: int = 0  # prompt tokens consumed so far
+    length: int = 0  # tokens written to KV so far
+    last_token: int = 0
+    out_tokens: list = dataclasses.field(default_factory=list)
+    logits: Optional[list] = None
+    steps: int = 0
+    admit_epoch: int = 0
+
+    @property
+    def next_input(self) -> int:
+        return (self.prompt[self.pos] if self.pos < len(self.prompt)
+                else self.last_token)
+
+    @property
+    def finished(self) -> bool:
+        return len(self.out_tokens) >= self.request.max_new_tokens
+
+
+class StreamingDecoder:
+    """Continuous-batching decode loop over a :class:`MergeAwareEngine`.
+
+    Every :meth:`step`:
+
+    1. (caller-driven via :meth:`run`) admit queued requests into free slots
+       — FIFO, gated on ``max_slots`` AND a worst-case page reservation in
+       the pool, with ``Scheduler.load`` + the engine's ``AsyncDMA`` paying
+       the instance's incremental residency bytes;
+    2. for each shared-prefix group with live slots: ONE ``trunk_step``
+       dispatch advances all of the group's rows by one token (padded onto
+       the bucket ladder by replicating the last real row — duplicate
+       identical page writes are deterministic, outputs discarded), then ONE
+       ``bank_head`` dispatch fans out every member's private head
+       (per-member heads when the group isn't bank-congruent; singletons run
+       the fused paged ``step``);
+    3. retire finished requests — pages released, completion recorded —
+       without ever draining the rest of the batch.
+
+    Prompt tokens stream through the same decode path one per step: a
+    request with prompt S and N new tokens is live for S + N - 1 steps.
+
+    **Chunked prefill admission** (``chunked_prefill=True``): slots still
+    consuming their prompt fast-forward up to ``page_size`` prompt tokens
+    per step in ONE ``prefill_chunk`` dispatch before the group's normal
+    single-token step.  The LAST prompt token always goes through the normal
+    step: it emits the first generated token.  Chunk dispatches are counted
+    in ``prefill_chunk_dispatches``, never in ``trunk_dispatches``.
+
+    Tokens are the argmax over the full padded vocab, taken on the device
+    (the first maximal index, as ``np.argmax``); only the token ids, and
+    with ``record_logits`` the emitted rows, cross to the host.
+    """
+
+    def __init__(self, engine: MergeAwareEngine, page_size: int = 8,
+                 num_pages: int = 128, max_slots: int = 8,
+                 max_len: int = 32, buckets: Optional[tuple] = None,
+                 record_logits: bool = False,
+                 chunked_prefill: bool = False,
+                 clock: Optional[Callable[[], float]] = None):
+        if max_len % page_size:
+            raise ValueError("max_len must be a multiple of page_size")
+        self.engine = engine
+        self.store = engine.store
+        # default to the engine's clock so one injected fake drives both
+        self.clock = clock if clock is not None else engine.clock
+        self.page_size = page_size
+        self.num_pages = num_pages
+        self.max_slots = max_slots
+        self.max_len = max_len
+        self.max_pages = max_len // page_size
+        self.buckets = tuple(sorted(b for b in (buckets or engine.buckets)
+                                    if b <= max_slots)) or (max_slots,)
+        self.record_logits = record_logits
+        self.chunked_prefill = chunked_prefill
+        self.queue: deque = deque()
+        self.slots: dict = {}  # rid -> _Slot, insertion-ordered
+        self.completions: list = []
+        self._pools: dict = {}  # init_pool callable key -> PagedKVPool
+        self._rid = 0
+        self._t0 = self.clock()
+        self._epoch = self.store.epoch
+        self.stats = {
+            "steps": 0, "tokens_decoded": 0, "prompt_tokens": 0,
+            "trunk_dispatches": 0, "bank_dispatches": 0,
+            "head_dispatches": 0, "singleton_dispatches": 0,
+            "group_steps": 0, "admitted": 0, "retired": 0,
+            "epoch_bumps": 0, "max_active": 0, "swap_survivors": 0,
+            "prefill_chunks": 0, "prefill_chunk_tokens": 0,
+            "prefill_chunk_dispatches": 0,
+        }
+
+    # -- plumbing -------------------------------------------------------------
+
+    def _decode(self, iid: str):
+        dec = self.engine.programs[iid].decode
+        if dec is None:
+            raise ValueError(f"{iid}: program has no decode surface")
+        return dec
+
+    def _device(self, iid: str) -> torch.device:
+        """The device that holds the instance's weights: pools, caches and
+        step inputs go there."""
+        params = self.store.materialize_cached(self.engine.programs[iid].model_id)
+        return next(iter(flatten_paths(params).values())).device
+
+    def pool_for(self, iid: str) -> PagedKVPool:
+        dec = self._decode(iid)
+        key = MergeAwareEngine._callable_key(dec.init_pool)
+        pool = self._pools.get(key)
+        if pool is None:
+            init = functools.partial(dec.init_pool, device=self._device(iid))
+            pool = PagedKVPool(init, self.num_pages, self.page_size)
+            self._pools[key] = pool
+        return pool
+
+    def submit(self, req: DecodeRequest) -> int:
+        self._decode(req.instance_id)  # validate up front
+        need = len(req.prompt) + req.max_new_tokens - 1
+        if need > self.max_len:
+            raise ValueError(f"request needs {need} KV positions > "
+                             f"max_len {self.max_len}")
+        self.queue.append(req)
+        return len(self.queue)
+
+    def _admit(self) -> None:
+        """FIFO admission into free slots, head-of-line blocking on pool
+        headroom (no reordering — deadline fairness is the scheduler order's
+        job, not the pool's)."""
+        while self.queue and len(self.slots) < self.max_slots:
+            req = self.queue[0]
+            pool = self.pool_for(req.instance_id)
+            need_tokens = len(req.prompt) + req.max_new_tokens - 1
+            if not pool.can_admit(need_tokens):
+                break
+            self.queue.popleft()
+            rid = self._rid
+            self._rid += 1
+            pool.admit(rid, need_tokens)
+            r = self.engine.scheduler.load(req.instance_id, 1)
+            self.engine.dma.wait((req.instance_id, "decode"), r["loaded_bytes"])
+            self.slots[rid] = _Slot(
+                rid, req, [int(t) for t in req.prompt],
+                logits=[] if self.record_logits else None,
+                admit_epoch=pool.epoch)
+            self.stats["admitted"] += 1
+        self.stats["max_active"] = max(self.stats["max_active"], len(self.slots))
+
+    @staticmethod
+    def _pad_rows(bucket: int, *arrays):
+        """Pad each array to ``bucket`` rows by replicating its last row."""
+        pad = bucket - len(arrays[0])
+        if pad <= 0:
+            return arrays
+        return tuple(np.concatenate([a, np.repeat(a[-1:], pad, 0)]) for a in arrays)
+
+    # -- the step -------------------------------------------------------------
+
+    def step(self) -> None:
+        """Advance every live row by one token (one trunk + one head fan-out
+        dispatch per shared group), then retire finished requests."""
+        if self.store.epoch != self._epoch:
+            # a rebinding landed: one pool epoch bump per store epoch move;
+            # page tables and lengths survive — in-flight requests keep their
+            # KV prefix and decode subsequent tokens under the new bindings
+            for pool in self._pools.values():
+                pool.bump_epoch()
+            self._epoch = self.store.epoch
+            self.stats["epoch_bumps"] += 1
+            self.stats["swap_survivors"] += len(self.slots)
+        groups = self.engine.prefix_groups()  # re-plans on epoch move
+        for group in groups:
+            slots = [s for s in self.slots.values()
+                     if s.request.instance_id in group]
+            if not slots:
+                continue
+            if self.chunked_prefill:
+                chunk = [s for s in slots if len(s.prompt) - 1 - s.pos >= 2]
+                if chunk:
+                    self._run_prefill_chunks(group, chunk)
+            self._run_group_step(group, slots)
+        self.stats["steps"] += 1
+        for rid in [r for r, s in self.slots.items() if s.finished]:
+            self._retire(rid)
+
+    def _retire(self, rid: int) -> None:
+        s = self.slots.pop(rid)
+        pool = self.pool_for(s.request.instance_id)
+        pool.release(rid)
+        self.completions.append(DecodeCompletion(
+            s.request, s.out_tokens, self.clock() - self._t0,
+            steps=s.steps, logits=s.logits,
+            admit_epoch=s.admit_epoch, retire_epoch=pool.epoch))
+        self.stats["retired"] += 1
+
+    def _run_prefill_chunks(self, group: list, slots: list) -> None:
+        """Fast-forward prompt-consuming slots by up to ``page_size`` prompt
+        tokens in ONE ``prefill_chunk`` dispatch per chunk size, always
+        leaving the LAST prompt token for the normal single-token step.
+        Padded rows replicate the last real row (duplicate identical page
+        writes, outputs discarded)."""
+        dec = self._decode(group[0])
+        if dec.prefill_chunk is None:
+            return
+        pool = self.pool_for(group[0])
+        params = self._params(group[0])
+        device = pool.k.device
+        by_k: dict = {}
+        for s in slots:
+            k = min(self.page_size, len(s.prompt) - 1 - s.pos)
+            by_k.setdefault(k, []).append(s)
+        for k, ss in sorted(by_k.items()):
+            bucket = bucket_for(len(ss), self.buckets)
+            for s in ss:
+                pool.ensure(s.rid, s.length + k)
+            tables, tokens, lengths = self._pad_rows(
+                bucket, pool.table_rows([s.rid for s in ss], self.max_pages),
+                np.array([s.prompt[s.pos:s.pos + k] for s in ss], np.int32),
+                np.array([s.length for s in ss], np.int32))
+            kv = {"k": pool.k, "v": pool.v}
+            _, kv = dec.prefill_chunk(
+                params, kv, torch.as_tensor(tables, device=device),
+                torch.as_tensor(lengths, device=device),
+                torch.as_tensor(tokens, device=device))
+            pool.k, pool.v = kv["k"], kv["v"]
+            self.stats["prefill_chunk_dispatches"] += 1
+            for s in ss:
+                s.length += k
+                s.pos += k
+                self.stats["prefill_chunks"] += 1
+                self.stats["prefill_chunk_tokens"] += k
+                self.stats["prompt_tokens"] += k
+
+    def _run_group_step(self, group: list, slots: list) -> None:
+        lead = group[0]
+        dec = self._decode(lead)
+        pool = self.pool_for(lead)
+        device = pool.k.device
+        bucket = bucket_for(len(slots), self.buckets)
+
+        for s in slots:
+            pool.ensure(s.rid, s.length + 1)
+        tables, tokens, lengths = self._pad_rows(
+            bucket, pool.table_rows([s.rid for s in slots], self.max_pages),
+            np.array([s.next_input for s in slots], np.int32),
+            np.array([s.length for s in slots], np.int32))
+        kv = {"k": pool.k, "v": pool.v}
+        args = (torch.as_tensor(tables, device=device),
+                torch.as_tensor(lengths, device=device),
+                torch.as_tensor(tokens, device=device))
+
+        members = sorted({s.request.instance_id for s in slots})
+        if len(group) > 1:
+            self.stats["group_steps"] += 1
+            hidden, kv = dec.trunk_step(self._params(lead), kv, *args)
+            self.stats["trunk_dispatches"] += 1
+            if self.engine._group_bankable(tuple(group)) and dec.bank_head is not None:
+                out = dec.bank_head(self.engine._bank_params(group), hidden)
+                self.stats["bank_dispatches"] += 1
+                rows = out[:, :, 0]  # (N, bucket, V)
+                row_of = {iid: n for n, iid in enumerate(group)}
+            else:
+                outs = []
+                for iid in members:
+                    outs.append(dec.head(self._params(iid), hidden)[:, 0])
+                    self.stats["head_dispatches"] += 1
+                rows = torch.stack(outs)
+                row_of = {iid: n for n, iid in enumerate(members)}
+        else:
+            (iid,) = group
+            out, kv = dec.step(self._params(iid), kv, *args)
+            self.stats["singleton_dispatches"] += 1
+            rows = out[:, 0][None]
+            row_of = {iid: 0}
+        pool.k, pool.v = kv["k"], kv["v"]
+
+        emitting = []
+        for j, s in enumerate(slots):
+            s.steps += 1
+            s.length += 1
+            if s.pos < len(s.prompt):
+                s.pos += 1
+                self.stats["prompt_tokens"] += 1
+            if s.pos >= len(s.prompt) and not s.finished:
+                emitting.append((j, s))
+        if not emitting:
+            return
+        sel = rows[torch.as_tensor([row_of[s.request.instance_id] for _, s in emitting]),
+                   torch.as_tensor([j for j, _ in emitting])]  # (E, V)
+        toks = sel.argmax(dim=-1).tolist()
+        host = sel.float().cpu().numpy() if self.record_logits else None
+        for e, ((_, s), tok) in enumerate(zip(emitting, toks)):
+            s.out_tokens.append(tok)
+            s.last_token = tok
+            self.stats["tokens_decoded"] += 1
+            if s.logits is not None:
+                s.logits.append(host[e])
+
+    def _params(self, iid: str):
+        return self.engine._params(iid)
+
+    # -- warmup + run ---------------------------------------------------------
+
+    def _warmup(self) -> None:
+        """Run every (group, bucket) decode path once before the clock
+        starts: it builds the CUDA kernels and warms the GEMM libraries and
+        the caching allocator.  The steps write their zero-token k/v, so they
+        run against a scratch pool of ``max_pages`` pages, never the live
+        one."""
+        for group in self.engine.prefix_groups():
+            try:
+                dec = self._decode(group[0])
+            except ValueError:
+                continue
+            device = self._device(group[0])
+            kv = dec.init_pool(self.max_pages, self.page_size, device=device)
+            for b in self.buckets:
+                args = (torch.zeros((b, self.max_pages), dtype=torch.int32, device=device),
+                        torch.zeros((b,), dtype=torch.int32, device=device),
+                        torch.zeros((b,), dtype=torch.int32, device=device))
+                if len(group) > 1:
+                    hidden, _ = dec.trunk_step(self._params(group[0]), kv, *args)
+                    if self.engine._group_bankable(tuple(group)) and dec.bank_head is not None:
+                        out = dec.bank_head(self.engine._bank_params(group), hidden)
+                    for iid in group:
+                        out = dec.head(self._params(iid), hidden)
+                else:
+                    out, _ = dec.step(self._params(group[0]), kv, *args)
+                out.sum().item()  # wait for the device
+            if self.chunked_prefill and dec.prefill_chunk is not None:
+                # exactly the chunk sizes the queued prompts will need (pos
+                # advances k + 1 per step: chunk then normal step)
+                ks: set = set()
+                for req in self.queue:
+                    if req.instance_id not in group:
+                        continue
+                    pos, S = 0, len(req.prompt)
+                    while S - 1 - pos >= 2:
+                        k = min(self.page_size, S - 1 - pos)
+                        ks.add(k)
+                        pos += k + 1
+                for k in sorted(ks):
+                    for b in self.buckets:
+                        hidden, _ = dec.prefill_chunk(
+                            self._params(group[0]), kv,
+                            torch.zeros((b, self.max_pages), dtype=torch.int32, device=device),
+                            torch.zeros((b,), dtype=torch.int32, device=device),
+                            torch.zeros((b, k), dtype=torch.int32, device=device))
+                        hidden.sum().item()
+
+    def run(self, requests: list, horizon_s: float = 60.0,
+            on_step: Optional[Callable] = None, warmup: bool = True) -> dict:
+        """Serve ``requests`` to completion (or the horizon).  ``on_step``
+        fires after every engine step with (decoder, step_index) — the
+        mid-decode rebinding hook."""
+        for req in requests:
+            self.submit(req)
+        if warmup:
+            self._warmup()
+        self._t0 = self.clock()
+        while (self.queue or self.slots) and self.clock() - self._t0 < horizon_s:
+            self._admit()
+            if not self.slots:  # queue non-empty but nothing admittable
+                break
+            self.step()
+            if on_step is not None:
+                on_step(self, self.stats["steps"])
+        elapsed = self.clock() - self._t0
+        pools_ok = all(p.identity_ok() for p in self._pools.values())
+        return {
+            "completed": len(self.completions),
+            "lost_in_flight": len(self.slots),
+            "unadmitted": len(self.queue),
+            "elapsed_s": elapsed,
+            "tokens_per_s": self.stats["tokens_decoded"] / max(elapsed, 1e-9),
+            "pool_identity_ok": pools_ok,
+            "pool_high_water_pages": max(
+                (p.high_water for p in self._pools.values()), default=0),
+            **self.stats,
+        }
+
+
+def replay_unpaged(decoder: StreamingDecoder, completion: DecodeCompletion,
+                   batch: int = 1) -> list:
+    """Teacher-forced replay of one completed request through the family's
+    UNPAGED ``decode_step`` (contiguous cache with Smax = max_len): feeds the
+    prompt and then the generated tokens, and returns the float32 logits row
+    of every step that emitted a generated token.  ``batch`` > 1 replays the
+    request in every row of a batch of that size and returns row 0: set
+    against ``batch=1`` it isolates what the batch size alone does to a row
+    (GEMMs whose summation order depends on M)."""
+    engine = decoder.engine
+    prog = engine.programs[completion.request.instance_id]
+    dec = prog.decode
+    params = engine.store.materialize_cached(prog.model_id)
+    device = decoder._device(completion.request.instance_id)
+    cache = dec.init_cache(batch, decoder.max_len, device=device)
+    prompt = [int(t) for t in completion.request.prompt]
+    rows = []
+    for i, tok in enumerate(prompt + completion.tokens[:-1]):
+        logits, cache = dec.step_unpaged(
+            params, cache, torch.full((batch, 1), tok, dtype=torch.int32, device=device))
+        if i >= len(prompt) - 1:  # this step emits a generated token
+            rows.append(logits[0, 0].float().cpu().numpy())
+    return rows
+
+
+def verify_bitwise(decoder: StreamingDecoder, sample: Optional[int] = None,
+                   require_logits: bool = True) -> bool:
+    """Replay completed requests through the unpaged ``decode_step`` and
+    compare the generated tokens — and, when the decoder recorded them,
+    every generated token's logits — bitwise.  Only valid for completions
+    produced under the store's CURRENT bindings (skip after a mid-stream
+    rebinding)."""
+    ok = True
+    comps = decoder.completions if sample is None else decoder.completions[:sample]
+    for c in comps:
+        if c.logits is None and require_logits:
+            raise ValueError("verify_bitwise needs record_logits=True for logits comparison")
+        rows = replay_unpaged(decoder, c)
+        if len(rows) != len(c.tokens):
+            ok = False
+        for i, row in enumerate(rows):
+            if int(np.argmax(row)) != c.tokens[i]:
+                ok = False
+            if c.logits is not None and not np.array_equal(row, c.logits[i]):
+                ok = False
+    return ok

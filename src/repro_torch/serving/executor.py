@@ -1,6 +1,7 @@
 """The merge-aware serving engine (the port of ``repro.serving.executor``:
-``MergeAwareEngine`` with its shared prefix and suffix bank; the per-request
-``EdgeExecutor``, hot plan swap and the sharded bank wait for later slices).
+``MergeAwareEngine`` with its shared prefix, suffix bank and streaming
+decode lane; the per-request ``EdgeExecutor``, hot plan swap and the
+sharded bank wait for later slices).
 
 PyTorch runs eagerly, so there is nothing to compile: where the JAX engine
 blocks on ``jax.block_until_ready`` this one synchronises the device that
@@ -85,6 +86,7 @@ class ModelProgram:
     suffix_paths: Optional[frozenset] = None
     suffix_signature: Optional[tuple] = None
     bank_suffix: Optional[Callable] = None  # (bank_params, feats) -> (N, ...)
+    decode: Optional[Any] = None  # registry.DecodeSplit — the streaming lane
 
     @classmethod
     def from_adapter(cls, adapter, instance_id: str,
@@ -94,6 +96,7 @@ class ModelProgram:
         (adapter, cfg) hands the engine the SAME function objects."""
         cfg = adapter.default_config() if cfg is None else cfg
         sp = adapter.split(cfg) if adapter.can_split else None
+        ds = adapter.decode_split(cfg) if (sp and adapter.can_decode) else None
         return cls(
             instance_id, model_id if model_id is not None else instance_id,
             forward=adapter.bound_forward(cfg),
@@ -103,6 +106,7 @@ class ModelProgram:
             suffix_paths=sp.suffix_paths if sp else None,
             suffix_signature=sp.suffix_signature if sp else None,
             bank_suffix=sp.bank_suffix if sp else None,
+            decode=ds,
         )
 
 
@@ -112,9 +116,11 @@ class AsyncDMA:
     not overlap the compute issued in between.  With ``simulate=False`` the
     bookkeeping still runs but nothing sleeps."""
 
-    def __init__(self, gbps: float, simulate: bool = True):
+    def __init__(self, gbps: float, simulate: bool = True,
+                 clock: Callable[[], float] = time.monotonic):
         self.gbps = gbps
         self.simulate = simulate
+        self.clock = clock
         self._inflight: dict = {}  # key -> (t_start, duration_s)
         self.stall_s = 0.0
         self.hidden_s = 0.0
@@ -124,7 +130,7 @@ class AsyncDMA:
         return nbytes / 1e9 / self.gbps
 
     def start(self, key, nbytes: int) -> None:
-        self._inflight[key] = (time.monotonic(), self.seconds_for(nbytes))
+        self._inflight[key] = (self.clock(), self.seconds_for(nbytes))
         if nbytes:
             self.transfers += 1
 
@@ -132,7 +138,7 @@ class AsyncDMA:
         """Block until the transfer for ``key`` is done; returns the visible
         stall.  A key never started (cold miss) pays the full transfer."""
         entry = self._inflight.pop(key, None)
-        now = time.monotonic()
+        now = self.clock()
         if entry is None:
             remaining = self.seconds_for(nbytes)
             if nbytes:
@@ -170,14 +176,16 @@ class MergeAwareEngine:
         simulate_dma: bool = True,
         buckets: tuple = (1, 2, 4, 8),
         suffix_bank: bool = True,
+        clock: Callable[[], float] = time.monotonic,
     ):
         self.store = store
+        self.clock = clock  # shared with the DMA model and the decoder
         self.scheduler = Scheduler(instances, capacity_bytes, costs)
         self.programs = {p.instance_id: p for p in programs}
         missing = set(self.programs) ^ {i.instance_id for i in instances}
         if missing:
             raise ValueError(f"programs/instances mismatch: {missing}")
-        self.dma = AsyncDMA(PCIE_GBPS, simulate=simulate_dma)
+        self.dma = AsyncDMA(PCIE_GBPS, simulate=simulate_dma, clock=clock)
         self.buckets = tuple(sorted(buckets))
         self.suffix_bank = suffix_bank
         self.queues = {i.instance_id: deque() for i in instances}
@@ -192,6 +200,24 @@ class MergeAwareEngine:
         self._groups_epoch = -1
         self._sigs: dict = {}  # iid -> binding signature, per groups epoch
         self._bankable: dict = {}  # group tuple -> bool, per groups epoch
+        self.last_decoder = None  # the StreamingDecoder of the last serve_decode
+
+    @staticmethod
+    def _callable_key(fn):
+        """Sharing identity of a callable: closures produced from one body
+        over the same captured values compare equal, so every member of one
+        (adapter, cfg) maps onto ONE decode pool.  Falls back to object
+        identity when the closure or defaults are unhashable."""
+        code = getattr(fn, "__code__", None)
+        if code is None:
+            return id(fn)
+        try:
+            cells = tuple(id(c.cell_contents) for c in (fn.__closure__ or ()))
+            key = (code, fn.__defaults__, cells)
+            hash(key)
+            return key
+        except (TypeError, ValueError):
+            return id(fn)
 
     def _binding_sig(self, iid: str) -> tuple:
         sig = self._sigs.get(iid)
@@ -299,7 +325,7 @@ class MergeAwareEngine:
                 self.stats["suffix_dispatches"] += 1
                 block_until_ready(bank_out)
                 slot = {iid: i for i, iid in enumerate(group)}
-                done = time.monotonic() - t0
+                done = self.clock() - t0
                 for j, r in enumerate(mb.requests):
                     self.completions.append(
                         Completion(r, bank_out[slot[r.instance_id], j], done))
@@ -332,7 +358,7 @@ class MergeAwareEngine:
                 self.stats["forward_runs"] += 1
             for o in outs.values():
                 block_until_ready(o)
-            done = time.monotonic() - t0
+            done = self.clock() - t0
             for j, r in enumerate(mb.requests):
                 row = pos[r.instance_id][j]
                 self.completions.append(Completion(r, outs[r.instance_id][row], done))
@@ -359,6 +385,22 @@ class MergeAwareEngine:
                     (iid,) = group
                     block_until_ready(self.programs[iid].forward(self._params(iid), batch))
 
+    def serve_decode(self, requests: list, horizon_s: float = 60.0,
+                     on_step: Optional[Callable] = None, **kw) -> dict:
+        """Streaming decode lane: paged KV pool + continuous batching via
+        ``serving.decode.StreamingDecoder`` — the shared trunk of a merged
+        group advances every in-flight row ONE token per step in a single
+        dispatch, private heads fan out through the suffix bank.  ``**kw``
+        forwards pool/batching knobs (``page_size``, ``num_pages``,
+        ``max_slots``, ``max_len``, ``buckets``, ``record_logits``,
+        ``chunked_prefill``); ``on_step(decoder, step)`` fires after every
+        step.  The decoder is kept on ``last_decoder``."""
+        from repro_torch.serving.decode import StreamingDecoder
+
+        dec = StreamingDecoder(self, **kw)
+        self.last_decoder = dec
+        return dec.run(requests, horizon_s=horizon_s, on_step=on_step)
+
     def serve(self, horizon_s: float, warmup: Any = None, drain: bool = True) -> dict:
         """Serve until the horizon (or until the queues are drained, with
         ``drain=True``).  Returns stats including cache/prefetch health;
@@ -371,12 +413,12 @@ class MergeAwareEngine:
         skipped_before = self.skipped
         stall_before, hidden_before = self.dma.stall_s, self.dma.hidden_s
         epoch_start = self.store.epoch
-        t0 = time.monotonic()
+        t0 = self.clock()
         gi = 0
         empty_streak = 0
-        while time.monotonic() - t0 < horizon_s:
+        while self.clock() - t0 < horizon_s:
             groups = self.prefix_groups()  # re-plan if an epoch moved
-            self._drop_expired(time.monotonic() - t0)
+            self._drop_expired(self.clock() - t0)
             if not any(self.queues.values()):
                 if drain:
                     break

@@ -63,6 +63,44 @@ def test_bank_kernel_matches_plain_version(cuda_device, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernel_matches_plain_version(cuda_device, dtype):
+    rnd = _rnd(cuda_device, dtype, 4)
+    for B, Smax, Hq, Hkv, D, lengths in [(8, 128, 32, 32, 64, (128, 1, 77, 64, 65, 3, 100, 9)),
+                                         (4, 1000, 32, 8, 128, (1000, 0, 513, 64)),
+                                         (2, 70, 16, 1, 64, (0, 70))]:
+        q, k, v = rnd(B, Hq, D), rnd(B, Smax, Hkv, D), rnd(B, Smax, Hkv, D)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
+        before = ops.kernel_launches()["decode_attention"]
+        out = ops.decode_attention(q, k, v, lens)
+        again = ops.decode_attention(q, k, v, lens)
+        assert ops.kernel_launches()["decode_attention"] == before + 2
+        assert torch.equal(out, again)  # one shape, the same bits
+        for b in (lens == 0).nonzero().flatten().tolist():
+            assert torch.equal(out[b], torch.zeros_like(out[b]))
+        torch.testing.assert_close(out.float(), tref.decode_attention_ref(
+            q, k, v, lens).float(), **TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_page_gather_kernel_is_exact(cuda_device, dtype):
+    rnd = _rnd(cuda_device, dtype, 5)
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    for P, W, N in [(128, 32768, 64), (300, 1000, 500), (7, 3, 11)]:
+        pool = rnd(P, W)
+        table = torch.randint(0, P, (N,), generator=g, device=cuda_device, dtype=torch.int32)
+        before = ops.kernel_launches()["page_gather"]
+        out = ops.page_gather(pool, table)
+        assert ops.kernel_launches()["page_gather"] == before + 1
+        assert out.dtype == pool.dtype and torch.equal(out, tref.page_gather_ref(pool, table))
+    # a view whose rows are not 16-byte aligned takes the narrow copy
+    pool = rnd(9, 1001)[:, 1:]
+    table = torch.tensor([8, 0, 3], dtype=torch.int32, device=cuda_device)
+    assert torch.equal(ops.page_gather(pool.contiguous(), table), pool[table.long()])
+
+
+@pytest.mark.gpu
 def test_kernel_wrappers_reject_what_they_do_not_take(cuda_device):
     q = torch.zeros((1, 8, 2, 32), device=cuda_device)
     with pytest.raises(ValueError, match="head dim 32"):
@@ -70,6 +108,26 @@ def test_kernel_wrappers_reject_what_they_do_not_take(cuda_device):
     x = torch.zeros((4, 8), device=cuda_device, dtype=torch.float16)
     with pytest.raises(TypeError):
         ops.bank_matmul(x, torch.zeros((2, 8, 3), device=cuda_device, dtype=torch.float16))
+    q3, kv = torch.zeros((2, 4, 64), device=cuda_device), torch.zeros((2, 8, 2, 64),
+                                                                     device=cuda_device)
+    lens = torch.ones(2, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError, match="int32"):
+        ops.decode_attention(q3, kv, kv, lens.long())
+    with pytest.raises(ValueError, match="head dim 32"):
+        ops.decode_attention(q3[..., :32].contiguous(), kv[..., :32].contiguous(),
+                             kv[..., :32].contiguous(), lens)
+    with pytest.raises(ValueError, match="query heads per kv head"):
+        ops.decode_attention(torch.zeros((2, 32, 64), device=cuda_device), kv[:, :, :1].contiguous(),
+                             kv[:, :, :1].contiguous(), lens)
+    strided = torch.zeros((2, 2, 8, 64), device=cuda_device).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.decode_attention(q3, strided, strided, lens)
+    with pytest.raises(TypeError, match="int32"):
+        ops.page_gather(x, torch.zeros(2, dtype=torch.int64, device=cuda_device))
+    with pytest.raises(ValueError, match="pool \\(P, W\\)"):
+        ops.page_gather(x[None], torch.zeros(2, dtype=torch.int32, device=cuda_device))
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        ops.page_gather(x, torch.zeros(2, dtype=torch.int32))
 
 
 @pytest.mark.gpu
@@ -108,7 +166,8 @@ def test_merged_dense_group_serves_through_both_kernels(cuda_device):
     ops.reset_kernel_launches()
     stats = eng.serve(horizon_s=60.0, warmup=reqs[0].payload)
     assert stats["completed"] == len(reqs)
-    assert all(n > 0 for n in ops.kernel_launches().values())
+    launches = ops.kernel_launches()
+    assert launches["flash_attention"] > 0 and launches["bank_matmul"] > 0
     assert stats["suffix_dispatches"] == stats["microbatches"]
     res = {id(c.request): c.result for c in eng.completions}
     for mb in deadline_microbatches(reqs, (1, 2, 4)):  # the engine's own batches
@@ -117,3 +176,55 @@ def test_merged_dense_group_serves_through_both_kernels(cuda_device):
             assert res[id(r)].is_cuda and res[id(r)].dtype == torch.float32
             direct = adapter.forward(cfg, store.materialize(r.instance_id), batch)[j]
             torch.testing.assert_close(res[id(r)], direct, **TOL["bfloat16"])
+
+
+@pytest.mark.gpu
+def test_paged_streaming_decode_replays_through_the_unpaged_decode(cuda_device):
+    """A merged pair plus a singleton, 2 layers, head dim 64, bf16: every
+    request streams through the paged path (page_gather + decode_attention +
+    bank_matmul) and its tokens equal the teacher-forced unpaged replay's
+    wherever the replay's top-2 margin exceeds the bf16 tolerance."""
+    from repro_torch.core import ParamStore, enumerate_groups
+    from repro_torch.models.registry import get_adapter
+    from repro_torch.models.transformer import DenseLMConfig
+    from repro_torch.serving.costs import costs_for
+    from repro_torch.serving.decode import DecodeRequest, replay_unpaged
+    from repro_torch.serving.executor import MergeAwareEngine, ModelProgram
+    from repro_torch.serving.workload import instances_from_store
+
+    adapter = get_adapter("dense")
+    cfg = DenseLMConfig(name="gpu-lm", n_layers=2, d_model=128, n_heads=4, n_kv_heads=2,
+                        head_dim=64, d_ff=256, vocab_size=300, rotary_pct=0.25,
+                        norm="layernorm", dtype="bfloat16")
+    mids = ("A", "B", "C")
+    store = ParamStore.from_models({m: adapter.init(cfg, seed=i, device=cuda_device)
+                                    for i, m in enumerate(mids)})
+    trunk = adapter.split(cfg).prefix_paths
+    recs = [r for m in ("A", "B") for r in adapter.records(cfg, store.materialize(m), m)
+            if r.path in trunk]
+    for g in enumerate_groups(recs):
+        store.merge_group(g)
+    eng = MergeAwareEngine(store, instances_from_store(store, "tiny-yolo"),
+                           [ModelProgram.from_adapter(adapter, m, cfg=cfg) for m in mids],
+                           capacity_bytes=10 ** 9, costs={"tiny-yolo": costs_for("tiny-yolo")},
+                           buckets=(1, 2, 4), simulate_dma=False)
+    g = torch.Generator().manual_seed(7)
+    reqs = [DecodeRequest(m, torch.randint(0, cfg.vocab_size, (9,), generator=g).numpy(),
+                          max_new_tokens=6) for _ in range(2) for m in mids]
+    ops.reset_kernel_launches()
+    stats = eng.serve_decode(reqs, page_size=4, num_pages=32, max_slots=6, max_len=16,
+                             record_logits=True, chunked_prefill=True)
+    launches = ops.kernel_launches()
+    assert stats["completed"] == len(reqs) and stats["pool_identity_ok"]
+    assert stats["bank_dispatches"] == stats["group_steps"] > 0
+    assert launches["page_gather"] == 2 * launches["decode_attention"] > 0
+    assert launches["bank_matmul"] > 0
+    dec = eng.last_decoder
+    for c in dec.completions:
+        rows = replay_unpaged(dec, c)
+        for i, row in enumerate(rows):
+            row_t, got = torch.from_numpy(row), torch.from_numpy(c.logits[i])
+            torch.testing.assert_close(got, row_t, **TOL["bfloat16"])
+            top2 = torch.topk(row_t, 2).values
+            if top2[0] - top2[1] > 2e-2 + 2e-2 * top2[0].abs():
+                assert c.tokens[i] == int(row_t.argmax())

@@ -21,11 +21,15 @@ import torch
 
 from repro.kernels import ref as jref
 from repro.kernels.bank_matmul import bank_matmul as pallas_bank_matmul
+from repro.kernels.decode_attention import decode_attention as pallas_decode
 from repro.kernels.flash_attention import flash_attention as pallas_flash
+from repro.kernels.page_gather import page_gather as pallas_gather
 from repro_torch import bridge
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import bank_matmul as kbank
+from repro_torch.kernels import decode_attention as kdecode
 from repro_torch.kernels import flash_attention as kflash
+from repro_torch.kernels import page_gather as kgather
 from repro_torch.kernels import ref as tref
 
 TIGHT = dict(rtol=1e-5, atol=1e-5)
@@ -118,6 +122,51 @@ def test_bank_ref_is_bitwise_per_member():
 
 
 # ---------------------------------------------------------------------------
+# decode attention
+# ---------------------------------------------------------------------------
+
+DECODE_CASES = [  # B, Smax, Hq, Hkv, D, lengths (a 0 row must give exact zeros)
+    (3, 64, 4, 4, 16, (64, 17, 0)),    # G = 1, full / ragged / empty rows
+    (2, 64, 4, 2, 64, (1, 40)),        # G = 2
+    (4, 96, 8, 2, 16, (96, 0, 33, 5)),  # G = 4, Smax = 3 tiles of 32
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Smax,Hq,Hkv,D,lengths", DECODE_CASES)
+def test_decode_ref_matches_jax_ref_and_pallas(dtype, B, Smax, Hq, Hkv, D, lengths):
+    (jq, jk, jv), (tq, tk, tv) = _inputs(
+        Smax + D, [(B, Hq, D), (B, Smax, Hkv, D), (B, Smax, Hkv, D)], dtype)
+    lens = np.array(lengths, np.int32)
+    got = tref.decode_attention_ref(tq, tk, tv, torch.from_numpy(lens))
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    for b in np.flatnonzero(lens == 0):
+        assert torch.equal(got[b], torch.zeros_like(got[b]))
+    want = jref.decode_attention_ref(jq, jk, jv, jnp.asarray(lens))
+    tol = TIGHT if dtype == "float32" else TOL[dtype]
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32), **tol)
+    pallas = pallas_decode(jq, jk, jv, jnp.asarray(lens), block_k=32, interpret=True)
+    np.testing.assert_allclose(_np(got), np.asarray(pallas, np.float32), **tol)
+
+
+# ---------------------------------------------------------------------------
+# page gather
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("P,W,N", [(12, 64, 20), (5, 1000, 3), (300, 24, 500)])
+def test_page_gather_ref_is_bitwise_the_jax_ref_and_pallas(dtype, P, W, N):
+    (jpool,), (tpool,) = _inputs(P + W, [(P, W)], dtype)
+    table = np.random.default_rng(N).integers(0, P, N).astype(np.int32)
+    got = tref.page_gather_ref(tpool, torch.from_numpy(table))
+    assert got.dtype == tpool.dtype and got.shape == (N, W)
+    for want in (jref.page_gather_ref(jpool, jnp.asarray(table)),
+                 pallas_gather(jpool, jnp.asarray(table), interpret=True)):
+        np.testing.assert_array_equal(bridge.tensor_to_array(got), np.asarray(want))
+
+
+# ---------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------
 
@@ -125,14 +174,20 @@ def test_bank_ref_is_bitwise_per_member():
 def test_ops_dispatch_cpu_tensors_to_plain_versions_and_count():
     _, (q, k, v) = _inputs(0, [(1, 16, 2, 16)] * 3, "float32")
     _, (x, w, b) = _inputs(1, [(4, 8), (2, 8, 5), (2, 5)], "float32")
+    lens = torch.tensor([16], dtype=torch.int32)
+    table = torch.tensor([1, 0, 1], dtype=torch.int32)
     ops.reset_dispatch_counts()
     ops.reset_kernel_launches()
     assert torch.equal(ops.flash_attention(q, k, v), tref.flash_attention_ref(q, k, v))
     assert torch.equal(ops.flash_attention(q, k, v, window=4),
                        tref.flash_attention_ref(q, k, v, window=4))
     assert torch.equal(ops.bank_matmul(x, w, b), tref.bank_matmul_ref(x, w, b))
-    assert ops.dispatch_counts() == {"flash_attention": 2, "bank_matmul": 1}
-    assert ops.kernel_launches() == {"flash_attention": 0, "bank_matmul": 0}
+    assert torch.equal(ops.decode_attention(q[:, 0], k, v, lens),
+                       tref.decode_attention_ref(q[:, 0], k, v, lens))
+    assert torch.equal(ops.page_gather(x, table), tref.page_gather_ref(x, table))
+    assert ops.dispatch_counts() == {"flash_attention": 2, "bank_matmul": 1,
+                                     "decode_attention": 1, "page_gather": 1}
+    assert ops.kernel_launches() == {name: 0 for name in ops.OP_TABLE}
     ops.reset_dispatch_counts()
     assert ops.dispatch_counts() == {}
 
@@ -143,13 +198,20 @@ def test_kernel_wrappers_take_cuda_tensors_only():
         kflash.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="CUDA tensors only"):
         kbank.bank_matmul(x, w)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        kdecode.decode_attention(q[:, 0], q, q, torch.ones(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        kgather.page_gather(x, torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="no implementation for device meta"):
+        ops.page_gather(x.to("meta"), torch.zeros(2, dtype=torch.int32))
     with pytest.raises(ValueError, match="no implementation for device meta"):
         ops.bank_matmul(x.to("meta"), w.to("meta"))
 
 
 def test_op_table_names_each_kernel_its_source_and_the_tpu_kernel():
     root = Path(__file__).resolve().parents[1]
-    assert set(ops.OP_TABLE) == {"flash_attention", "bank_matmul"}
+    assert set(ops.OP_TABLE) == {"flash_attention", "bank_matmul", "decode_attention",
+                                 "page_gather"}
     assert {str(p.relative_to(root)) for p in _build.sources()} == \
         {s.source for s in ops.OP_TABLE.values()}
     for spec in ops.OP_TABLE.values():
