@@ -4,35 +4,47 @@
     python3 chip_smoke.py
 
 Phases, each printing one JSON line (any failure raises and the script
-exits non-zero):
+exits non-zero; every phase opens with a ``phase_start`` line giving the
+device memory still allocated and closes with its seconds):
 
 1. device: name, count, torch version and the card's power limit;
 2. build: compiles the hand-written CUDA kernels from ``kernels/csrc``;
 3. kernels: each Hopper kernel against its plain PyTorch version on the
-   card at the main path's shapes and a few edge shapes, with kernel, plain,
-   library and bound times;
+   card at the main paths' shapes and a few edge shapes, with kernel,
+   plain, library and bound times;
 4. small_cnn merge-and-serve: two members, trunk merged, through
    ``MergeAwareEngine``; completions against direct forwards;
-5. stablelm-1.6b at full width: three fine-tune variants (shared base,
+5. for each full-width group below, three fine-tune variants (shared base,
    trunk perturbed by 0.005, head by 1.0), every trunk group merged, 8
    requests of 128 tokens per member served through ``MergeAwareEngine``
-   with the suffix bank; kernel launch counts, residency, and every served
-   row against the member's direct forward on the same padded batch; then
-   one more micro-batch under ``torch.profiler`` (device time by kernel,
-   device idle share);
-6. stablelm-1.6b streaming decode on the same merged store: 8 requests of
-   96 prompt tokens per member, 32 new tokens each, through
-   ``MergeAwareEngine.serve_decode`` (paged KV pool of 128 pages of 16,
-   8 slots, chunked prefill); dispatch discipline, kernel launch counts
-   over the streaming run, pool accounting, and one request per member
-   replayed teacher-forced through the unpaged decode; then pure decode
-   steps with all 8 slots live, timed and under ``torch.profiler``.
+   (``<prefix>_merge`` / ``_serve``): kernel launch counts, residency, and
+   every served row against the member's direct forward on the same
+   padded batch; then one more micro-batch under ``torch.profiler``
+   (``_profile``: device time by kernel, device idle share):
+   * stablelm-1.6b (dense: ``flash_attention``, ``bank_matmul`` suffix bank),
+   * falcon-mamba-7b (ssm: ``mamba_scan``, ``bank_matmul`` suffix bank),
+   * recurrentgemma-9b (hybrid: ``rg_lru_scan``, ``flash_attention`` at
+     head dim 256, a tied head served per member);
+6. streaming decode on the merged stablelm-1.6b and falcon-mamba-7b
+   stores (``<prefix>_decode``): 8 requests of 96 prompt tokens per member,
+   32 new tokens each, through ``MergeAwareEngine.serve_decode`` (a pool
+   of 128 pages of 16, 8 slots, chunked prefill; KV pages for stablelm,
+   one recurrent-state slot per request for falcon-mamba); dispatch
+   discipline, kernel launch counts over the streaming run, pool
+   accounting, and one request per member replayed teacher-forced through
+   the unpaged decode; then pure decode steps with all 8 slots live, timed
+   and under ``torch.profiler`` (``_decode_profile``).
 
-Then the ``{"kernels": [...]}`` line and, last, the device line.  Needs one
-card; imports nothing of JAX and nothing of the JAX package.
+Each family's store, engine and decoder are released before the next
+family's phase.  Then the ``{"kernels": [...]}`` line (each kernel's
+launches summed over every serve and decode run above) and, last, the
+device line.  Needs one card; imports nothing of JAX and nothing of the
+JAX package.
 """
 from __future__ import annotations
 
+import collections
+import gc
 import json
 import subprocess
 import sys
@@ -256,6 +268,61 @@ def check_gather(torch, case: str, P, W, N, dtype, reps, gen):
     return row
 
 
+def check_mamba(torch, case: str, B, S, di, n, dtype, zero_h0, reps, gen):
+    """mamba_scan against its plain version.  Both widen the inputs to
+    float32 before any arithmetic, so bf16 inputs too are held at the
+    float32 tolerance; the comparison covers y and h_last.  No one PyTorch
+    call computes the recurrence: the library column is null."""
+    from repro_torch.kernels import mamba_scan as kmod
+    from repro_torch.kernels.ref import mamba_scan_ref
+
+    dt = getattr(torch, dtype)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
+    args = (torch.nn.functional.softplus(rnd(B, S, di)).to(dt), rnd(B, S, di).to(dt),
+            rnd(B, S, n).to(dt), rnd(B, S, n).to(dt), -torch.exp(0.5 * rnd(di, n)),
+            torch.zeros((B, di, n), device="cuda") if zero_h0 else rnd(B, di, n))
+    y, h = kmod.mamba_scan(*args)
+    torch.cuda.synchronize()
+    yr, hr = mamba_scan_ref(*args)
+    err = max((y - yr).abs().max().item(), (h - hr).abs().max().item())
+    torch.testing.assert_close(y, yr, **TOL["float32"])
+    torch.testing.assert_close(h, hr, **TOL["float32"])
+    ms = cuda_ms(torch, lambda: kmod.mamba_scan(*args), reps)
+    plain_ms = cuda_ms(torch, lambda: mamba_scan_ref(*args), max(2, reps // 10))
+    # per (row, step, channel, state): dt*A, exp, *h, dtx*B, +, *C, + -- 7 operations
+    bound_ms, bound_by = bound(nbytes(*args, y, h), 7.0 * B * S * di * n, "float32")
+    row = dict(kernel="mamba_scan", case=case, shape=dict(B=B, S=S, di=di, n=n), dtype=dtype,
+               zero_h0=zero_h0, max_abs_err=err, tol=TOL["float32"], ms=ms, plain_ms=plain_ms,
+               library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+    emit("kernel_check", **row)
+    return row
+
+
+def check_rg_lru(torch, case: str, B, S, d, dtype, reps, gen):
+    """rg_lru_scan against its plain version (y and h_last), at the float32
+    tolerance for either input dtype as for mamba_scan; library null."""
+    from repro_torch.kernels import rg_lru as kmod
+    from repro_torch.kernels.ref import rg_lru_ref
+
+    dt = getattr(torch, dtype)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
+    args = (torch.sigmoid(rnd(B, S, d)).to(dt), rnd(B, S, d).to(dt), rnd(B, d))
+    y, h = kmod.rg_lru_scan(*args)
+    torch.cuda.synchronize()
+    yr, hr = rg_lru_ref(*args)
+    err = max((y - yr).abs().max().item(), (h - hr).abs().max().item())
+    torch.testing.assert_close(y, yr, **TOL["float32"])
+    torch.testing.assert_close(h, hr, **TOL["float32"])
+    ms = cuda_ms(torch, lambda: kmod.rg_lru_scan(*args), reps)
+    plain_ms = cuda_ms(torch, lambda: rg_lru_ref(*args), max(2, reps // 10))
+    bound_ms, bound_by = bound(nbytes(*args, y, h), 2.0 * B * S * d, "float32")
+    row = dict(kernel="rg_lru_scan", case=case, shape=dict(B=B, S=S, d=d), dtype=dtype,
+               max_abs_err=err, tol=TOL["float32"], ms=ms, plain_ms=plain_ms,
+               library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+    emit("kernel_check", **row)
+    return row
+
+
 def kernel_checks(torch) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     # what cuda_ms gives for a kernel that does almost nothing (one element
@@ -290,6 +357,22 @@ def kernel_checks(torch) -> dict:
                  [4096, 1, 3000, 2048, 4095, 512, 1234, 3999], 20, gen)
     check_decode(torch, "gqa-len0", 4, 1000, 32, 8, 128, "bfloat16", [1000, 0, 513, 64],
                  50, gen)
+    # falcon-mamba-7b: serve (8 x 128 tokens, di 8192, n 16, f32 coefficients)
+    # and decode (S = 1 with the state from the pool)
+    main["mamba_scan"] = check_mamba(torch, "falcon-serve", 8, 128, 8192, 16, "float32",
+                                     True, 20, gen)
+    check_mamba(torch, "falcon-serve", 8, 128, 8192, 16, "bfloat16", True, 20, gen)
+    check_mamba(torch, "ragged", 3, 13, 1000, 16, "float32", False, 50, gen)
+    check_mamba(torch, "falcon-decode", 8, 1, 8192, 16, "float32", False, 50, gen)
+    # recurrentgemma-9b: the RG-LRU at 8 x 128 tokens, d_rnn 4096
+    main["rg_lru_scan"] = check_rg_lru(torch, "rgemma-serve", 8, 128, 4096, "float32", 50, gen)
+    check_rg_lru(torch, "rgemma-serve", 8, 128, 4096, "bfloat16", 50, gen)
+    check_rg_lru(torch, "ragged", 3, 13, 1000, "float32", 50, gen)
+    check_rg_lru(torch, "decode", 8, 1, 4096, "float32", 50, gen)
+    # recurrentgemma-9b local attention: 16 query heads on one kv head of
+    # 256, window 2048 (wider than the sequence), then a window that bites
+    check_flash(torch, "rgemma-trunk", 8, 128, 16, 1, 256, "bfloat16", 2048, 50, gen)
+    check_flash(torch, "d256-window", 2, 512, 16, 1, 256, "bfloat16", 128, 20, gen)
     return main
 
 
@@ -414,30 +497,50 @@ def lm_zoo(torch, adapter, cfg) -> dict:
     return zoo
 
 
-def stablelm_phase(torch) -> tuple:
-    from repro_torch.configs import stablelm_1_6b
+def start_phase(torch, name: str) -> float:
+    """Free what the previous phase left, print the device memory still
+    allocated, and return the phase's start time."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("phase_start", name=name, memory_allocated_bytes=torch.cuda.memory_allocated())
+    return time.perf_counter()
+
+
+def lm_serve_phase(torch, prefix: str, family: str, cfg, capacity_bytes: int,
+                   expect: tuple) -> tuple:
+    """Three ``lm_zoo`` variants at full width, every trunk group merged, 8
+    requests of 128 tokens per member served through ``MergeAwareEngine``
+    (lines ``<prefix>_merge`` / ``_serve`` / ``_profile``).  ``expect`` are
+    the kernels that must launch.  An untied head fans out through the
+    suffix bank (one dispatch per banked micro-batch); a tied head reads
+    the shared embedding table and runs once per member of a micro-batch,
+    with no bank.  Returns (kernel launches of the serve, engine)."""
     from repro_torch.core import ParamStore
     from repro_torch.kernels import ops
     from repro_torch.models.registry import get_adapter
     from repro_torch.serving.workload import deadline_microbatches
 
-    adapter = get_adapter("dense")
-    cfg = stablelm_1_6b.full_config()
+    adapter = get_adapter(family)
+    t_phase = start_phase(torch, f"{prefix}_merge")
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     store = ParamStore.from_models(lm_zoo(torch, adapter, cfg))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     unmerged = store.resident_bytes()
+    peak_init = torch.cuda.max_memory_allocated()
     shared = merge_trunk(adapter, cfg, store, LM_MIDS)
     merged = store.resident_bytes()
     torch.cuda.empty_cache()
-    emit("stablelm_merge", config=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
-         vocab=cfg.padded_vocab, dtype=cfg.dtype, init_s=init_s, shared_keys=shared,
-         resident_bytes_unmerged=unmerged, resident_bytes_merged=merged,
-         saved_fraction=1 - merged / unmerged,
-         device_allocated_bytes=torch.cuda.memory_allocated())
+    emit(f"{prefix}_merge", config=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+         vocab=cfg.padded_vocab, dtype=cfg.dtype, tied=cfg.tie_embeddings, init_s=init_s,
+         shared_keys=shared, resident_bytes_unmerged=unmerged, resident_bytes_merged=merged,
+         saved_fraction=1 - merged / unmerged, peak_memory_bytes_while_building=peak_init,
+         device_allocated_bytes=torch.cuda.memory_allocated(),
+         seconds=time.perf_counter() - t_phase)
 
-    eng = make_engine(adapter, cfg, store, LM_MIDS, int(16e9))
+    t_phase = start_phase(torch, f"{prefix}_serve")
+    eng = make_engine(adapter, cfg, store, LM_MIDS, capacity_bytes)
     gen = torch.Generator(device="cuda").manual_seed(100)
     reqs = interleaved_requests(LM_MIDS, lambda: torch.randint(
         0, cfg.vocab_size, (1, 128), generator=gen, device="cuda"))
@@ -450,22 +553,30 @@ def stablelm_phase(torch) -> tuple:
     serve_s = time.perf_counter() - t0
     launches = ops.kernel_launches()
     peak = torch.cuda.max_memory_allocated()
-    banked = sum(1 for mb in deadline_microbatches(reqs, BUCKETS)
-                 if len({r.instance_id for r in mb.requests}) > 1)
+    mbs = deadline_microbatches(reqs, BUCKETS)
+    members = [len({r.instance_id for r in mb.requests}) for mb in mbs]
+    banked = sum(1 for m in members if m > 1)
     assert stats["completed"] == len(reqs), stats
-    assert launches["bank_matmul"] > 0 and launches["flash_attention"] > 0, launches
-    assert stats["suffix_dispatches"] == banked, (stats, banked)
+    assert all(launches[k] > 0 for k in expect), launches
+    if cfg.tie_embeddings:
+        assert launches["bank_matmul"] == 0, launches
+        assert stats["suffix_dispatches"] == stats["suffix_runs"] == sum(members), stats
+    else:
+        assert stats["suffix_dispatches"] == banked, (stats, banked)
     err = served_vs_direct(torch, adapter, cfg, store, eng, reqs, "bfloat16")
-    emit("stablelm_serve", stats=stats, launches=launches,
-         banked_microbatches=banked, suffix_dispatches_equal_banked=True,
-         serve_wall_s_with_warmup=serve_s,
+    emit(f"{prefix}_serve", stats=stats, launches=launches, banked_microbatches=banked,
+         member_suffixes=sum(members), serve_wall_s_with_warmup=serve_s,
          wall_s_per_microbatch=stats["elapsed_s"] / max(stats["microbatches"], 1),
-         peak_memory_bytes=peak, max_abs_err_vs_forward=err, tol=TOL["bfloat16"])
-    profile_microbatch(torch, eng, cfg, gen, stats["elapsed_s"] / stats["microbatches"])
-    return launches, eng, cfg
+         peak_memory_bytes=peak, max_abs_err_vs_forward=err, tol=TOL["bfloat16"],
+         seconds=time.perf_counter() - t_phase)
+    t_phase = start_phase(torch, f"{prefix}_profile")
+    profile_microbatch(torch, eng, cfg, gen, stats["elapsed_s"] / stats["microbatches"],
+                       f"{prefix}_profile")
+    emit("phase_end", name=f"{prefix}_profile", seconds=time.perf_counter() - t_phase)
+    return launches, eng
 
 
-def profile_microbatch(torch, eng, cfg, gen, served_wall_s: float) -> None:
+def profile_microbatch(torch, eng, cfg, gen, served_wall_s: float, name: str) -> None:
     """One more banked micro-batch (8 interleaved requests) under
     ``torch.profiler``: device time by kernel, and the device's idle share
     of the wall time, both under the profiler and against the unprofiled
@@ -490,7 +601,7 @@ def profile_microbatch(torch, eng, cfg, gen, served_wall_s: float) -> None:
             and e.self_device_time_total > 0]
     busy_ms = sum(ms for _, ms, _ in rows)
     top = sorted(rows, key=lambda r: -r[1])[:8]
-    emit("stablelm_profile", microbatches=stats["microbatches"], wall_ms_profiled=wall_ms,
+    emit(name, microbatches=stats["microbatches"], wall_ms_profiled=wall_ms,
          device_busy_ms=busy_ms, device_idle_share_profiled=max(0.0, 1 - busy_ms / wall_ms),
          served_wall_ms_per_microbatch=served_wall_s * 1e3,
          device_idle_share=max(0.0, 1 - busy_ms / (served_wall_s * 1e3)),
@@ -561,11 +672,13 @@ def replay_check(torch, dec, tol: dict) -> dict:
                                    argmax_mismatches=ctl_mismatches))
 
 
-def decode_phase(torch, eng, cfg) -> dict:
-    """Streaming decode of the merged stablelm group; returns the kernel
-    launches of the streaming run."""
+def decode_phase(torch, prefix: str, eng, cfg, expect: tuple) -> dict:
+    """Streaming decode of a merged group (lines ``<prefix>_decode`` and
+    ``<prefix>_decode_profile``); ``expect`` are the kernels that must
+    launch.  Returns the kernel launches of the streaming run."""
     from repro_torch.kernels import ops
 
+    t_phase = start_phase(torch, f"{prefix}_decode")
     reqs = decode_requests(cfg, REQS_PER_MEMBER, 200, NEW_TOKENS)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -583,23 +696,24 @@ def decode_phase(torch, eng, cfg) -> dict:
     assert stats["pool_identity_ok"], stats
     assert stats["trunk_dispatches"] == stats["bank_dispatches"] == stats["group_steps"] > 0, stats
     assert stats["singleton_dispatches"] == 0, stats
-    for name in ("page_gather", "decode_attention", "bank_matmul"):
-        assert launches[name] > 0, launches
+    assert all(launches[name] > 0 for name in expect), launches
+    # a KV pool is read through two gathers (k and v) per attention
     assert launches["page_gather"] == 2 * launches["decode_attention"], launches
     replay = replay_check(torch, dec, TOL["bfloat16"])
-    emit("stablelm_decode", requests=len(reqs), prompt_tokens=PROMPT_LEN,
+    emit(f"{prefix}_decode", requests=len(reqs), prompt_tokens=PROMPT_LEN,
          new_tokens=NEW_TOKENS, knobs={k: v for k, v in DECODE_KW.items()}, stats=stats,
          launches=launches, tokens_per_s=stats["tokens_per_s"],
          wall_s_per_step=stats["elapsed_s"] / stats["steps"],
-         serve_decode_wall_s_with_warmup=wall_s,
-         kv_pool_bytes=pool.k.numel() * pool.k.element_size() * 2,
+         serve_decode_wall_s_with_warmup=wall_s, pool_bytes=nbytes(pool.k, pool.v),
          pool_high_water_pages=stats["pool_high_water_pages"], peak_memory_bytes=peak,
-         replay=replay)
-    profile_decode_steps(torch, eng, cfg)
+         replay=replay, seconds=time.perf_counter() - t_phase)
+    t_phase = start_phase(torch, f"{prefix}_decode_profile")
+    profile_decode_steps(torch, eng, cfg, f"{prefix}_decode_profile")
+    emit("phase_end", name=f"{prefix}_decode_profile", seconds=time.perf_counter() - t_phase)
     return launches
 
 
-def profile_decode_steps(torch, eng, cfg, timed: int = 5) -> None:
+def profile_decode_steps(torch, eng, cfg, name: str, timed: int = 5) -> None:
     """With all 8 slots past their prompts (every slot emits a token each
     step): ``timed`` pure decode steps on the host clock, then one more
     under ``torch.profiler`` (device time by kernel, device idle share)."""
@@ -631,7 +745,7 @@ def profile_decode_steps(torch, eng, cfg, timed: int = 5) -> None:
     rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in device]
     busy_ms = sum(ms for _, ms, _ in rows)
     top = sorted(rows, key=lambda r: -r[1])[:10]
-    emit("stablelm_decode_profile", slots=DECODE_KW["max_slots"], timed_steps=timed,
+    emit(name, slots=DECODE_KW["max_slots"], timed_steps=timed,
          wall_ms_per_decode_step=step_ms,
          tokens_per_s_decode_steps=DECODE_KW["max_slots"] / step_ms * 1e3,
          wall_ms_profiled=wall_ms, device_busy_ms=busy_ms,
@@ -672,11 +786,32 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0, cached=_build.build_info["cached"],
          ptxas=ptxas)
 
+    from repro_torch.configs import falcon_mamba_7b, recurrentgemma_9b, stablelm_1_6b
+
+    t0 = start_phase(torch, "kernel_checks")
     main_rows = kernel_checks(torch)
+    emit("phase_end", name="kernel_checks", seconds=time.perf_counter() - t0)
+    t0 = start_phase(torch, "small_cnn_serve")
     small_cnn_phase(torch)
-    launches, eng, cfg = stablelm_phase(torch)
-    launches.update({k: v for k, v in decode_phase(torch, eng, cfg).items()
-                     if k in ("page_gather", "decode_attention")})
+    emit("phase_end", name="small_cnn_serve", seconds=time.perf_counter() - t0)
+    # (line prefix, family, config, engine capacity, kernels the serve must
+    # launch, kernels the streaming decode must launch or None: no decode)
+    runs = [
+        ("stablelm", "dense", stablelm_1_6b.full_config(), int(16e9),
+         ("bank_matmul", "flash_attention"), ("page_gather", "decode_attention", "bank_matmul")),
+        ("falcon_mamba", "ssm", falcon_mamba_7b.full_config(), int(32e9),
+         ("mamba_scan", "bank_matmul"), ("mamba_scan", "bank_matmul")),
+        ("recurrentgemma", "hybrid", recurrentgemma_9b.full_config(), int(32e9),
+         ("rg_lru_scan", "flash_attention"), None),
+    ]
+    launches = collections.Counter()  # summed over every serve and decode run
+    for prefix, family, cfg, capacity, serve_expect, decode_expect in runs:
+        serve_launches, eng = lm_serve_phase(torch, prefix, family, cfg, capacity, serve_expect)
+        launches.update(serve_launches)
+        if decode_expect is not None:
+            launches.update(decode_phase(torch, prefix, eng, cfg, decode_expect))
+        del eng  # the next family's start_phase frees this one's store
+    assert all(launches[name] > 0 for name in main_rows), launches
 
     kernels = []
     for name, row in main_rows.items():

@@ -23,6 +23,10 @@
 //   * 4 threads share a query row: each scores 16 of the 64 keys and owns
 //     D / 4 output columns; the row max and sum are combined by shuffles.
 // The products run on CUDA cores; at this shape that is not the limit.
+// Head dims 64, 128 and 256 are compiled.  At D = 256 (recurrentgemma-9b,
+// 16 query heads on one kv head) the float32 tiles take 209 KB of dynamic
+// shared memory -- above the 48 KB default, so the launch raises the
+// kernel's limit with cudaFuncSetAttribute -- and one block fits an SM.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -173,6 +177,7 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
                      int window, float scale, cudaStream_t stream) {
   if (D == 64) return launch<T, 64>(q, k, v, o, B, S, Hq, Hkv, causal, window, scale, stream);
   if (D == 128) return launch<T, 128>(q, k, v, o, B, S, Hq, Hkv, causal, window, scale, stream);
+  if (D == 256) return launch<T, 256>(q, k, v, o, B, S, Hq, Hkv, causal, window, scale, stream);
   return cudaErrorInvalidValue;
 }
 

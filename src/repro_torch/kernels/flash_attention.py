@@ -1,9 +1,9 @@
 """Wrapper of the hand-written Hopper flash attention (``csrc/flash_attention.cu``).
 
 Causal or sliding-window grouped-query attention over q ``(B, S, Hq, D)``
-and k, v ``(B, S, Hkv, D)``; the output has q's dtype.  Head dims 64 and 128
-are compiled; ragged S is masked by the kernel.  This function takes CUDA
-tensors only; the ops layer sends CPU tensors to
+and k, v ``(B, S, Hkv, D)``; the output has q's dtype.  Head dims 64, 128
+and 256 are compiled; ragged S is masked by the kernel.  This function
+takes CUDA tensors only; the ops layer sends CPU tensors to
 ``ref.flash_attention_ref``.
 """
 from __future__ import annotations
@@ -16,7 +16,7 @@ import torch
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -18,8 +18,10 @@ import torch
 from repro_torch.kernels import bank_matmul as _bank_mod
 from repro_torch.kernels import decode_attention as _decode_mod
 from repro_torch.kernels import flash_attention as _flash_mod
+from repro_torch.kernels import mamba_scan as _mamba_mod
 from repro_torch.kernels import page_gather as _gather_mod
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import rg_lru as _rg_lru_mod
 
 DISPATCH_COUNTS: dict = {}
 
@@ -85,6 +87,25 @@ def bank_matmul(x, w, b=None):
     return _ref.bank_matmul_ref(x, w, b)
 
 
+def rg_lru_scan(a, b, h0):
+    """Diagonal recurrence h_t = a_t * h_{t-1} + b_t over (B, S, d); returns
+    (y, h_last) in float32.  Any S >= 1: the caller pads nothing."""
+    _count("rg_lru_scan")
+    if _on_cuda(a, "rg_lru_scan"):
+        return _rg_lru_mod.rg_lru_scan(a, b, h0)
+    return _ref.rg_lru_ref(a, b, h0)
+
+
+def mamba_scan(dt, dtx, Bmat, Cmat, A, h0):
+    """Selective scan h_t = exp(dt_t A) h_{t-1} + dtx_t B_t, y_t = C_t . h_t;
+    returns (y (B, S, di), h_last (B, di, n)) in float32.  Any S >= 1: the
+    caller pads nothing."""
+    _count("mamba_scan")
+    if _on_cuda(dt, "mamba_scan"):
+        return _mamba_mod.mamba_scan(dt, dtx, Bmat, Cmat, A, h0)
+    return _ref.mamba_scan_ref(dt, dtx, Bmat, Cmat, A, h0)
+
+
 @dataclasses.dataclass(frozen=True)
 class OpSpec:
     """One dispatchable op: its Hopper kernel wrapper, plain version,
@@ -119,6 +140,14 @@ OP_TABLE: dict = {
                bank_matmul, ("x", "w"), optional_args=("b",),
                source="src/repro_torch/kernels/csrc/bank_matmul.cu",
                replaces="src/repro/kernels/bank_matmul.py:123"),
+        OpSpec("mamba_scan", _mamba_mod.mamba_scan, _ref.mamba_scan_ref, mamba_scan,
+               ("dt", "dtx", "Bmat", "Cmat", "A", "h0"),
+               source="src/repro_torch/kernels/csrc/mamba_scan.cu",
+               replaces="src/repro/kernels/mamba_scan.py:78"),
+        OpSpec("rg_lru_scan", _rg_lru_mod.rg_lru_scan, _ref.rg_lru_ref, rg_lru_scan,
+               ("a", "b", "h0"),
+               source="src/repro_torch/kernels/csrc/rg_lru.cu",
+               replaces="src/repro/kernels/rg_lru.py:65"),
     )
 }
 

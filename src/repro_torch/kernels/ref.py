@@ -93,3 +93,41 @@ def bank_matmul_ref(
             o = o + b[i].float()
         outs.append(o)
     return torch.stack(outs)
+
+
+def rg_lru_ref(
+    a: torch.Tensor,  # (B, S, d) per-step decay
+    b: torch.Tensor,  # (B, S, d) per-step input
+    h0: torch.Tensor,  # (B, d)
+) -> tuple:
+    """Diagonal recurrence h_t = a_t * h_{t-1} + b_t, a loop over S in
+    float32.  Returns (y (B, S, d), h_last (B, d)), both float32."""
+    a, b = a.float(), b.float()
+    h = h0.float()
+    ys = []
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        ys.append(h)
+    return torch.stack(ys, dim=1), h
+
+
+def mamba_scan_ref(
+    dt: torch.Tensor,  # (B, S, di)
+    dtx: torch.Tensor,  # (B, S, di) == dt * x
+    Bmat: torch.Tensor,  # (B, S, n)
+    Cmat: torch.Tensor,  # (B, S, n)
+    A: torch.Tensor,  # (di, n), negative
+    h0: torch.Tensor,  # (B, di, n)
+) -> tuple:
+    """Selective scan h_t = exp(dt_t A) h_{t-1} + dtx_t B_t, y_t = C_t . h_t,
+    a loop over S in float32 that forms one (B, di, n) step at a time.
+    Returns (y (B, S, di), h_last (B, di, n)), both float32."""
+    dt, dtx, Bmat, Cmat = dt.float(), dtx.float(), Bmat.float(), Cmat.float()
+    A = A.float()
+    h = h0.float()
+    ys = []
+    for t in range(dt.shape[1]):
+        at = torch.exp(dt[:, t, :, None] * A)  # (B, di, n)
+        h = at * h + dtx[:, t, :, None] * Bmat[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, Cmat[:, t]))
+    return torch.stack(ys, dim=1), h

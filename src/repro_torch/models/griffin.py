@@ -1,0 +1,299 @@
+"""Griffin-style hybrid LM (RG-LRU + local attention; recurrentgemma-9b) —
+the port of ``repro.models.griffin`` for merge-and-serve.
+
+RG-LRU recurrence (Griffin, arXiv:2402.19427):
+
+    r_t = sigmoid(W_a x_t + b_a)          recurrence gate
+    i_t = sigmoid(W_x x_t + b_x)          input gate
+    a_t = exp(-c * softplus(Lambda) * r_t)        per-channel decay in (0,1)
+    h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
+
+Parameters are nested dicts with per-repeat layers
+``repeats/<r>/<i>_<kind>/...`` (the JAX package's ``scan_layers=False``
+layout).  The recurrence goes through ``kernels.ops.rg_lru_scan`` and the
+local attention through ``ops.flash_attention(window=...)``: the Hopper
+kernels on CUDA tensors, the plain versions on CPU tensors.  The scan takes
+any sequence length, so the JAX package's identity padding up to a chunk
+multiple has no counterpart here.  Streaming decode (the ring-buffer KV
+cache) is not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops as kops
+from repro_torch.models import layers as L
+from repro_torch.models.ssm import _conv1d
+from repro_torch.utils.device import resolve_device
+from repro_torch.utils.tree import flatten_paths, torch_dtype
+
+_RGLRU_C = 8.0
+
+
+@dataclasses.dataclass(frozen=True)
+class GriffinConfig:
+    name: str = "griffin-lm"
+    n_layers: int = 6  # must be divisible by len(pattern)
+    pattern: tuple = ("rec", "rec", "attn")
+    d_model: int = 256
+    d_rnn: int = 256  # lru width
+    n_heads: int = 4
+    n_kv_heads: int = 1  # MQA
+    head_dim: int = 64
+    d_ff: int = 1024
+    vocab_size: int = 1000
+    vocab_multiple: int = 256
+    window: int = 128  # local attention window
+    rope_theta: float = 1e4
+    conv_width: int = 4
+    rglru_blocks: int = 0  # 0 -> n_heads; block-diagonal gate weights
+    norm: str = "rmsnorm"
+    act: str = "gelu_tanh"
+    gated_ffn: bool = True
+    tie_embeddings: bool = True
+    logit_softcap: Optional[float] = 30.0
+    dtype: str = "float32"  # numpy dtype name
+
+    @property
+    def padded_vocab(self) -> int:
+        return L.padded_vocab(self.vocab_size, self.vocab_multiple)
+
+    @property
+    def n_repeats(self) -> int:
+        if self.n_layers % len(self.pattern):
+            raise ValueError(f"n_layers {self.n_layers} is not a multiple of the "
+                             f"pattern's {len(self.pattern)} layers")
+        return self.n_layers // len(self.pattern)
+
+    @property
+    def gate_blocks(self) -> int:
+        return self.rglru_blocks or self.n_heads
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+def _init_recurrent(cfg: GriffinConfig, gen, device) -> dict:
+    d, dr, dt = cfg.d_model, cfg.d_rnn, cfg.dtype
+    nb = cfg.gate_blocks
+    bw = dr // nb
+    # Lambda so that a^c lies in (0.9, 0.999) at r = 1 (Griffin appendix),
+    # stored through the inverse softplus
+    u = L.uniform(gen, (dr,), 0.9 ** 2, 0.999 ** 2, device)
+    lam = torch.log(torch.expm1(-torch.log(u) / (2.0 * _RGLRU_C)))
+
+    def zeros():
+        return torch.zeros((dr,), dtype=torch_dtype(dt), device=device)
+
+    return {
+        "in_x": {"w": L.init_dense(gen, d, dr, dt, device)},
+        "in_gate": {"w": L.init_dense(gen, d, dr, dt, device)},
+        "conv": {"w": L.normal(gen, (cfg.conv_width, dr), 1.0 / math.sqrt(cfg.conv_width),
+                               dt, device),
+                 "b": zeros()},
+        "rglru": {
+            # block-diagonal gate weights, one (bw, bw) block per head
+            "w_a": L.normal(gen, (nb, bw, bw), 0.5 / math.sqrt(bw), dt, device),
+            "b_a": zeros(),
+            "w_x": L.normal(gen, (nb, bw, bw), 0.5 / math.sqrt(bw), dt, device),
+            "b_x": zeros(),
+            "lam": lam,
+        },
+        "out_proj": {"w": L.init_dense(gen, dr, d, dt, device)},
+    }
+
+
+def _init_attn(cfg: GriffinConfig, gen, device) -> dict:
+    Hq, Hkv, D, d, dt = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model, cfg.dtype
+    return {
+        "wq": L.init_dense(gen, d, Hq * D, dt, device),
+        "wk": L.init_dense(gen, d, Hkv * D, dt, device),
+        "wv": L.init_dense(gen, d, Hkv * D, dt, device),
+        "wo": L.init_dense(gen, Hq * D, d, dt, device),
+    }
+
+
+def _init_layer(cfg: GriffinConfig, kind: str, gen, device) -> dict:
+    p = {
+        "ln1": L.init_norm(cfg.norm, cfg.d_model, cfg.dtype, device),
+        "ln2": L.init_norm(cfg.norm, cfg.d_model, cfg.dtype, device),
+        "mlp": L.init_ffn(gen, cfg.d_model, cfg.d_ff, cfg.dtype, device, gated=cfg.gated_ffn),
+    }
+    if kind == "rec":
+        p["rec"] = _init_recurrent(cfg, gen, device)
+    else:
+        p["attn"] = _init_attn(cfg, gen, device)
+    return p
+
+
+def init(cfg: GriffinConfig, seed: int = 0, device=None) -> dict:
+    """Random parameters from ``seed``, generated on ``device`` (default
+    ``cuda``; ``meta`` gives shapes only)."""
+    device = resolve_device(device)
+    gen = L.make_generator(seed, device)
+    V = cfg.padded_vocab
+    params: dict = {
+        "embed": {"table": L.normal(gen, (V, cfg.d_model), 0.02, cfg.dtype, device)},
+        "final_norm": L.init_norm(cfg.norm, cfg.d_model, cfg.dtype, device),
+        "repeats": {str(r): {f"{i}_{kind}": _init_layer(cfg, kind, gen, device)
+                             for i, kind in enumerate(cfg.pattern)}
+                    for r in range(cfg.n_repeats)},
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = {"w": L.init_dense(gen, cfg.d_model, V, cfg.dtype, device)}
+    return params
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU
+# ---------------------------------------------------------------------------
+
+
+def _block_dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Block-diagonal linear: x (B, S, dr), w (nb, bw, bw) -> (B, S, dr)
+    float32 (inputs widened first: float32 sums of exact products)."""
+    B, S, dr = x.shape
+    nb, bw, _ = w.shape
+    y = torch.einsum("bsnw,nwk->bsnk", x.reshape(B, S, nb, bw).float(), w.float())
+    return y.reshape(B, S, dr) + b.float()
+
+
+def _rglru_coeffs(p: dict, x: torch.Tensor) -> tuple:
+    """x (B, S, dr) -> (a, b) of the diagonal recurrence h = a*h + b, both
+    (B, S, dr) float32."""
+    r = torch.sigmoid(_block_dense(x, p["w_a"], p["b_a"]))
+    i = torch.sigmoid(_block_dense(x, p["w_x"], p["b_x"]))
+    log_a = -_RGLRU_C * L.softplus(p["lam"].float()) * r
+    a = torch.exp(log_a)
+    beta = torch.sqrt(-torch.expm1(2.0 * log_a))  # sqrt(1 - a^2), stably
+    return a, beta * (i * x.float())
+
+
+def _recurrent_mixer(cfg: GriffinConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Griffin recurrent block over a whole sequence from a zero state:
+    x (B, S, d) -> (B, S, d).  The recurrence goes through
+    ``ops.rg_lru_scan``."""
+    B = x.shape[0]
+    xb = L.dense(x, p["in_x"]["w"])  # (B, S, dr) recurrent branch
+    gate = F.gelu(L.dense(x, p["in_gate"]["w"]).float(), approximate="tanh")
+    xc, _ = _conv1d(xb, p["conv"]["w"], p["conv"]["b"])
+    a, b = _rglru_coeffs(p["rglru"], xc)
+    h0 = torch.zeros((B, cfg.d_rnn), dtype=torch.float32, device=x.device)
+    h_all, _ = kops.rg_lru_scan(a, b, h0)
+    return L.dense((h_all * gate).to(x.dtype), p["out_proj"]["w"])
+
+
+# ---------------------------------------------------------------------------
+# Local attention
+# ---------------------------------------------------------------------------
+
+
+def _attn_full(cfg: GriffinConfig, p: dict, x: torch.Tensor,
+               positions: torch.Tensor) -> torch.Tensor:
+    """Sliding-window MQA over positions 0..S-1 through
+    ``ops.flash_attention(window=cfg.window)``."""
+    B, S, _ = x.shape
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = L.apply_rope(L.dense(x, p["wq"]).reshape(B, S, Hq, D), positions, cfg.rope_theta, D)
+    k = L.apply_rope(L.dense(x, p["wk"]).reshape(B, S, Hkv, D), positions, cfg.rope_theta, D)
+    v = L.dense(x, p["wv"]).reshape(B, S, Hkv, D)
+    attn = kops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                causal=True, window=cfg.window)
+    return L.dense(attn.reshape(B, S, -1), p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# Layers / forward
+# ---------------------------------------------------------------------------
+
+
+def _layer(cfg: GriffinConfig, kind: str, p: dict, x: torch.Tensor,
+           positions: torch.Tensor) -> torch.Tensor:
+    h = L.apply_norm(cfg.norm, x, p.get("ln1", {}))
+    if kind == "rec":
+        y = _recurrent_mixer(cfg, p["rec"], h)
+    else:
+        y = _attn_full(cfg, p["attn"], h, positions)
+    x = x + y
+    h = L.apply_norm(cfg.norm, x, p.get("ln2", {}))
+    return x + L.ffn(h, p["mlp"], act=cfg.act, gated=cfg.gated_ffn)
+
+
+def trunk(cfg: GriffinConfig, params: dict, tokens: torch.Tensor,
+          positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Embedding (scaled by sqrt(d_model), as gemma does) + griffin repeats —
+    the mergeable *prefix*.  Returns pre-final-norm hidden states (B, S, d).
+    Only the standard positions 0..S-1 are served: packed or offset
+    positions need the masked blocked attention, which is not ported."""
+    if positions is not None:
+        raise NotImplementedError(
+            "griffin.trunk: explicit positions need blocked_causal_attention, which the "
+            "port does not have yet; only positions 0..S-1 run through the flash kernel")
+    B, S = tokens.shape
+    positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
+    x = L.embed(tokens, params["embed"]["table"])
+    x = x * torch.sqrt(torch.tensor(float(cfg.d_model), dtype=x.dtype, device=x.device))
+    for r in range(cfg.n_repeats):
+        rep = params["repeats"][str(r)]
+        for i, kind in enumerate(cfg.pattern):
+            x = _layer(cfg, kind, rep[f"{i}_{kind}"], x, positions)
+    return x
+
+
+def _softcap(cfg: GriffinConfig, logits: torch.Tensor) -> torch.Tensor:
+    if cfg.logit_softcap is None:
+        return logits
+    return torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+
+
+def head(cfg: GriffinConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Final norm + softcapped unembedding — the private *suffix*."""
+    x = L.apply_norm(cfg.norm, x, params.get("final_norm", {}))
+    if cfg.tie_embeddings:
+        logits = L.unembed(x, params["embed"]["table"], transpose=True)
+    else:
+        logits = L.unembed(x, params["lm_head"]["w"], transpose=False)
+    return _softcap(cfg, logits)
+
+
+def forward(cfg: GriffinConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """tokens (B, S) -> logits (B, S, padded_vocab) float32, composed as
+    ``head(trunk(x))`` so the serving split is bitwise identical to it."""
+    return head(cfg, params, trunk(cfg, params, tokens))
+
+
+def trunk_paths(params: dict) -> frozenset:
+    """Flat param paths read by :func:`trunk` (a tied head also reads the
+    embedding table).  Works on ``meta`` trees."""
+    return frozenset(p for p in flatten_paths(params)
+                     if not p.startswith(("final_norm/", "lm_head/")))
+
+
+def head_paths(params: dict) -> frozenset:
+    """Flat param paths read by an untied :func:`head` — the private-suffix
+    leaves the serving engine stacks into a bank."""
+    return frozenset(p for p in flatten_paths(params)
+                     if p.startswith(("final_norm/", "lm_head/")))
+
+
+def bank_head(cfg: GriffinConfig, bank_params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Every private head of a merged untied group in ONE ``ops.bank_matmul``
+    (each member's final norm as in :func:`head`), then the softcap.
+    Returns (N, B, S, V)."""
+    if cfg.tie_embeddings:
+        raise ValueError("tied-embedding heads have no bank path")
+    n_bank = bank_params["lm_head"]["w"].shape[0]
+    fn = bank_params.get("final_norm") or {}
+    xn = torch.stack([
+        L.apply_norm(cfg.norm, x, {k: v[i] for k, v in fn.items()})
+        for i in range(n_bank)])
+    B, S, d = x.shape
+    logits = kops.bank_matmul(xn.reshape(n_bank, B * S, d), bank_params["lm_head"]["w"])
+    return _softcap(cfg, logits.reshape(n_bank, B, S, -1))

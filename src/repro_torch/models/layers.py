@@ -40,6 +40,14 @@ def normal(gen: Optional[torch.Generator], shape: tuple, scale: float, dtype,
     return (torch.randn(shape, generator=gen, device=device) * scale).to(dtype)
 
 
+def uniform(gen: Optional[torch.Generator], shape: tuple, low: float, high: float,
+            device: torch.device) -> torch.Tensor:
+    """``U(low, high)`` in float32."""
+    if device.type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device=device)
+    return low + (high - low) * torch.rand(shape, generator=gen, device=device)
+
+
 def init_dense(gen, d_in: int, d_out: int, dtype, device, scale: float = 1.0):
     return normal(gen, (d_in, d_out), scale / math.sqrt(d_in), dtype, device)
 
@@ -177,6 +185,12 @@ def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None):
     if b is None:
         return torch.matmul(x, w)
     return (torch.matmul(x.float(), w.float()) + b.float()).to(x.dtype)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + exp(x)) as ``jax.nn.softplus`` computes it (``logaddexp(x,
+    0)``); ``F.softplus`` switches to x above a threshold instead."""
+    return torch.logaddexp(x, torch.zeros_like(x))
 
 
 _ACTS = {

@@ -15,7 +15,7 @@ import dataclasses
 from typing import Callable, Optional
 
 from repro_torch.core.signatures import records_from_params
-from repro_torch.models import transformer, vision
+from repro_torch.models import griffin, ssm, transformer, vision
 from repro_torch.utils.tree import dtype_name, flatten_paths
 
 
@@ -187,12 +187,89 @@ class SmallCNNAdapter(MergeableAdapter):
                            bank_suffix=bank_suffix)
 
 
-class DenseLMAdapter(MergeableAdapter):
+class _TokenLMAdapter(MergeableAdapter):
+    """Token LMs split at the final norm: the trunk (embedding + blocks) is
+    the mergeable prefix, the head (final norm + unembedding) the private
+    suffix.  ``module`` is the family's model module, ``init_pool_fn`` its
+    paged-pool constructor."""
+
+    can_split = True
+    can_decode = True
+    module = None
+    init_pool_fn = None
+
+    def init(self, cfg, seed: int = 0, device=None):
+        return self.module.init(cfg, seed, device)
+
+    def forward(self, cfg, params, x):
+        """tokens (B, S) -> logits (B, S, V), composed as ``head(trunk(x))``."""
+        return self.module.forward(cfg, params, x)
+
+    def _build_split(self, cfg) -> PrefixSplit:
+        mod = self.module
+        ep = self.eval_params(cfg)
+        paths = mod.trunk_paths(ep)
+
+        def prefix(params, x, _cfg=cfg):
+            return mod.trunk(_cfg, params, x)
+
+        def suffix(params, feats, _cfg=cfg):
+            return mod.head(_cfg, params, feats)
+
+        if cfg.tie_embeddings:
+            # tied heads read the shared embed table: banking would stack
+            # the model's largest tensor N times — stay per-member
+            return PrefixSplit(prefix, suffix, paths)
+
+        def bank_suffix(bank_params, feats, _cfg=cfg):
+            return mod.bank_head(_cfg, bank_params, feats)
+
+        return PrefixSplit(prefix, suffix, paths,
+                           suffix_paths=mod.head_paths(ep),
+                           bank_suffix=bank_suffix)
+
+    def _build_decode_split(self, cfg) -> DecodeSplit:
+        mod, pool_fn = self.module, self.init_pool_fn
+        sp = self.split(cfg)  # the same trunk/head congruence tiers
+
+        def trunk_step(params, pool, tables, lengths, tokens, _cfg=cfg):
+            return mod.paged_trunk_step(_cfg, params, pool, tables, lengths, tokens)
+
+        def head_fn(params, hidden, _cfg=cfg):
+            return mod.head(_cfg, params, hidden)
+
+        def step(params, pool, tables, lengths, tokens, _cfg=cfg):
+            return mod.paged_decode_step(_cfg, params, pool, tables, lengths, tokens)
+
+        def step_unpaged(params, cache, tokens, _cfg=cfg):
+            return mod.decode_step(_cfg, params, cache, tokens)
+
+        def init_pool(num_pages, page_size, device=None, _cfg=cfg):
+            return pool_fn(_cfg, num_pages, page_size, device=device)
+
+        def init_cache(batch, max_len, device=None, _cfg=cfg):
+            return mod.init_cache(_cfg, batch, max_len, device=device)
+
+        bank = None
+        if sp.bank_suffix is not None:
+            def bank(bank_params, hidden, _cfg=cfg):
+                return mod.bank_head(_cfg, bank_params, hidden)
+
+        def prefill_chunk(params, pool, tables, lengths, tokens, _cfg=cfg):
+            return mod.paged_prefill_chunk(_cfg, params, pool, tables, lengths, tokens)
+
+        return DecodeSplit(trunk_step, head_fn, step, step_unpaged, init_pool, init_cache,
+                           sp.prefix_paths, head_paths=sp.suffix_paths,
+                           head_signature=sp.suffix_signature, bank_head=bank,
+                           prefill_chunk=prefill_chunk)
+
+
+class DenseLMAdapter(_TokenLMAdapter):
     """Dense decoder-only transformers with per-layer blocks."""
 
     name = "dense"
-    can_split = True
-    can_decode = True
+    module = transformer
+    init_pool_fn = staticmethod(transformer.init_kv_pool)
 
     def default_config(self):
         return transformer.DenseLMConfig(
@@ -201,69 +278,47 @@ class DenseLMAdapter(MergeableAdapter):
             tie_embeddings=False,
         )
 
-    def init(self, cfg, seed: int = 0, device=None):
-        return transformer.init(cfg, seed, device)
 
-    def forward(self, cfg, params, x):
-        """tokens (B, S) -> logits (B, S, V), composed as ``head(trunk(x))``."""
-        return transformer.forward(cfg, params, x)
+class SSMAdapter(_TokenLMAdapter):
+    """Mamba selective-state-space LMs: the recurrence runs through
+    ``ops.mamba_scan``.  The decode state is per-layer ``(h (di, n), conv
+    (d_conv-1, di))`` instead of a KV cache, and lives wholly in each
+    request's FIRST page slot of the state pool."""
 
-    def _build_split(self, cfg) -> PrefixSplit:
-        ep = self.eval_params(cfg)
-        paths = transformer.trunk_paths(ep)
+    name = "ssm"
+    module = ssm
+    init_pool_fn = staticmethod(ssm.init_state_pool)
 
-        def prefix(params, x, _cfg=cfg):
-            return transformer.trunk(_cfg, params, x)
+    def default_config(self):
+        return ssm.MambaConfig(
+            name="tiny-mamba", n_layers=2, d_model=32, d_inner=64, d_state=8,
+            d_conv=4, dt_rank=8, vocab_size=64, vocab_multiple=32,
+            tie_embeddings=False,
+        )
 
-        def suffix(params, feats, _cfg=cfg):
-            return transformer.head(_cfg, params, feats)
 
-        if cfg.tie_embeddings:
-            # tied heads read the shared embed table: banking would stack
-            # the model's largest tensor N times — stay per-member
-            return PrefixSplit(prefix, suffix, paths)
+class GriffinAdapter(_TokenLMAdapter):
+    """Griffin recurrent/local-attention hybrids: the RG-LRU runs through
+    ``ops.rg_lru_scan`` and the local attention through
+    ``ops.flash_attention(window=...)``.  Merge-and-serve only: streaming
+    decode (a ring-buffer KV of ``window`` slots per attention layer) is
+    not ported yet."""
 
-        def bank_suffix(bank_params, feats, _cfg=cfg):
-            return transformer.bank_head(_cfg, bank_params, feats)
+    name = "hybrid"
+    module = griffin
+    can_decode = False
 
-        return PrefixSplit(prefix, suffix, paths,
-                           suffix_paths=transformer.head_paths(ep),
-                           bank_suffix=bank_suffix)
+    def default_config(self):
+        return griffin.GriffinConfig(
+            name="tiny-griffin", n_layers=3, pattern=("rec", "rec", "attn"),
+            d_model=32, d_rnn=32, n_heads=2, n_kv_heads=1, head_dim=16,
+            d_ff=64, vocab_size=64, vocab_multiple=32, window=8,
+            tie_embeddings=False,
+        )
 
     def _build_decode_split(self, cfg) -> DecodeSplit:
-        sp = self.split(cfg)  # the same trunk/head congruence tiers
-
-        def trunk_step(params, pool, tables, lengths, tokens, _cfg=cfg):
-            return transformer.paged_trunk_step(_cfg, params, pool, tables, lengths, tokens)
-
-        def head_fn(params, hidden, _cfg=cfg):
-            return transformer.head(_cfg, params, hidden)
-
-        def step(params, pool, tables, lengths, tokens, _cfg=cfg):
-            return transformer.paged_decode_step(_cfg, params, pool, tables, lengths, tokens)
-
-        def step_unpaged(params, cache, tokens, _cfg=cfg):
-            return transformer.decode_step(_cfg, params, cache, tokens)
-
-        def init_pool(num_pages, page_size, device=None, _cfg=cfg):
-            return transformer.init_kv_pool(_cfg, num_pages, page_size, device=device)
-
-        def init_cache(batch, max_len, device=None, _cfg=cfg):
-            return transformer.init_cache(_cfg, batch, max_len, device=device)
-
-        bank = None
-        if sp.bank_suffix is not None:
-            def bank(bank_params, hidden, _cfg=cfg):
-                return transformer.bank_head(_cfg, bank_params, hidden)
-
-        def prefill_chunk(params, pool, tables, lengths, tokens, _cfg=cfg):
-            return transformer.paged_prefill_chunk(_cfg, params, pool, tables, lengths,
-                                                   tokens)
-
-        return DecodeSplit(trunk_step, head_fn, step, step_unpaged, init_pool, init_cache,
-                           sp.prefix_paths, head_paths=sp.suffix_paths,
-                           head_signature=sp.suffix_signature, bank_head=bank,
-                           prefill_chunk=prefill_chunk)
+        raise NotImplementedError(
+            "hybrid: streaming decode (ring-buffer local attention) is not ported yet")
 
 
 ADAPTERS: dict = {}
@@ -280,3 +335,5 @@ def get_adapter(name: str) -> MergeableAdapter:
 
 register_adapter(SmallCNNAdapter())
 register_adapter(DenseLMAdapter())
+register_adapter(SSMAdapter())
+register_adapter(GriffinAdapter())

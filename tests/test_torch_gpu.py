@@ -40,7 +40,8 @@ def _rnd(device, dtype, seed):
 def test_flash_kernel_matches_plain_version(cuda_device, dtype):
     rnd = _rnd(cuda_device, dtype, 0)
     for B, S, Hq, Hkv, D, window in [(2, 200, 8, 2, 128, None), (2, 128, 4, 4, 64, 32),
-                                     (1, 1, 2, 1, 64, None)]:
+                                     (1, 1, 2, 1, 64, None), (2, 130, 16, 1, 256, None),
+                                     (1, 300, 4, 1, 256, 64)]:
         q, k, v = rnd(B, S, Hq, D), rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
         before = ops.kernel_launches()["flash_attention"]
         out = ops.flash_attention(q, k, v, window=window)
@@ -101,6 +102,44 @@ def test_page_gather_kernel_is_exact(cuda_device, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba_scan_kernel_matches_plain_version(cuda_device, dtype):
+    """Ragged S, one decode step with a carried state, both compiled state
+    dims.  The kernel and the plain version both widen to float32 first, so
+    every input dtype is held at the float32 tolerance."""
+    rnd = _rnd(cuda_device, dtype, 7)
+    f32 = _rnd(cuda_device, "float32", 8)
+    for B, S, di, n, zero_h0 in [(2, 13, 300, 16, True), (8, 1, 512, 16, False),
+                                 (3, 70, 128, 8, False)]:
+        dt = torch.nn.functional.softplus(rnd(B, S, di).float()).to(getattr(torch, dtype))
+        args = (dt, rnd(B, S, di), rnd(B, S, n), rnd(B, S, n), -torch.exp(0.5 * f32(di, n)),
+                torch.zeros((B, di, n), device=cuda_device) if zero_h0 else f32(B, di, n))
+        before = ops.kernel_launches()["mamba_scan"]
+        y, h = ops.mamba_scan(*args)
+        assert ops.kernel_launches()["mamba_scan"] == before + 1
+        assert y.dtype == h.dtype == torch.float32
+        yr, hr = tref.mamba_scan_ref(*args)
+        torch.testing.assert_close(y, yr, **TOL["float32"])
+        torch.testing.assert_close(h, hr, **TOL["float32"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rg_lru_kernel_matches_plain_version(cuda_device, dtype):
+    rnd = _rnd(cuda_device, dtype, 9)
+    f32 = _rnd(cuda_device, "float32", 10)
+    for B, S, d in [(2, 13, 300), (8, 1, 4096), (1, 200, 64)]:
+        a = torch.sigmoid(rnd(B, S, d).float()).to(getattr(torch, dtype))
+        args = (a, rnd(B, S, d), f32(B, d))
+        before = ops.kernel_launches()["rg_lru_scan"]
+        y, h = ops.rg_lru_scan(*args)
+        assert ops.kernel_launches()["rg_lru_scan"] == before + 1
+        yr, hr = tref.rg_lru_ref(*args)
+        torch.testing.assert_close(y, yr, **TOL["float32"])
+        torch.testing.assert_close(h, hr, **TOL["float32"])
+
+
+@pytest.mark.gpu
 def test_kernel_wrappers_reject_what_they_do_not_take(cuda_device):
     q = torch.zeros((1, 8, 2, 32), device=cuda_device)
     with pytest.raises(ValueError, match="head dim 32"):
@@ -128,6 +167,20 @@ def test_kernel_wrappers_reject_what_they_do_not_take(cuda_device):
         ops.page_gather(x[None], torch.zeros(2, dtype=torch.int32, device=cuda_device))
     with pytest.raises(ValueError, match="CUDA tensors only"):
         ops.page_gather(x, torch.zeros(2, dtype=torch.int32))
+    dt = torch.zeros((2, 3, 16), device=cuda_device)
+    with pytest.raises(ValueError, match="state dim 4"):
+        ops.mamba_scan(dt, dt, dt[..., :4].contiguous(), dt[..., :4].contiguous(),
+                       torch.zeros((16, 4), device=cuda_device),
+                       torch.zeros((2, 16, 4), device=cuda_device))
+    with pytest.raises(TypeError, match="float32"):
+        ops.mamba_scan(dt, dt, dt[..., :8].contiguous(), dt[..., :8].contiguous(),
+                       torch.zeros((16, 8), device=cuda_device, dtype=torch.bfloat16),
+                       torch.zeros((2, 16, 8), device=cuda_device))
+    with pytest.raises(TypeError, match="h0 must be float32"):
+        ops.rg_lru_scan(dt, dt, torch.zeros((2, 16), device=cuda_device, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.rg_lru_scan(dt.transpose(0, 1), dt.transpose(0, 1), torch.zeros((3, 16),
+                                                                            device=cuda_device))
 
 
 @pytest.mark.gpu
@@ -228,3 +281,108 @@ def test_paged_streaming_decode_replays_through_the_unpaged_decode(cuda_device):
             top2 = torch.topk(row_t, 2).values
             if top2[0] - top2[1] > 2e-2 + 2e-2 * top2[0].abs():
                 assert c.tokens[i] == int(row_t.argmax())
+
+
+def _merged_engine(family, cfg, mids, device, buckets):
+    """An engine over ``mids`` with every trunk group merged."""
+    from repro_torch.core import ParamStore, enumerate_groups
+    from repro_torch.models.registry import get_adapter
+    from repro_torch.serving.costs import costs_for
+    from repro_torch.serving.executor import MergeAwareEngine, ModelProgram
+    from repro_torch.serving.workload import instances_from_store
+
+    adapter = get_adapter(family)
+    store = ParamStore.from_models({m: adapter.init(cfg, seed=i, device=device)
+                                    for i, m in enumerate(mids)})
+    trunk = adapter.split(cfg).prefix_paths
+    recs = [r for m in mids for r in adapter.records(cfg, store.materialize(m), m)
+            if r.path in trunk]
+    for g in enumerate_groups(recs):
+        store.merge_group(g)
+    return adapter, MergeAwareEngine(
+        store, instances_from_store(store, "tiny-yolo"),
+        [ModelProgram.from_adapter(adapter, m, cfg=cfg) for m in mids],
+        capacity_bytes=10 ** 9, costs={"tiny-yolo": costs_for("tiny-yolo")},
+        buckets=buckets, simulate_dma=False)
+
+
+def _serve_and_check(adapter, cfg, eng, mids, device, S):
+    """Two requests per member, interleaved; every served row against the
+    member's direct forward on the engine's own padded batch."""
+    from repro_torch.serving.executor import Request
+    from repro_torch.serving.workload import deadline_microbatches, pad_stack
+
+    g = torch.Generator(device=device).manual_seed(3)
+    reqs = [Request(m, torch.randint(0, cfg.vocab_size, (1, S), generator=g, device=device),
+                    0.0, 30.0 + (j * len(mids) + i) * 1e-3)
+            for j in range(2) for i, m in enumerate(mids)]
+    for r in reqs:
+        eng.submit(r)
+    ops.reset_kernel_launches()
+    stats = eng.serve(horizon_s=60.0, warmup=reqs[0].payload)
+    launches = ops.kernel_launches()
+    assert stats["completed"] == len(reqs)
+    res = {id(c.request): c.result for c in eng.completions}
+    for mb in deadline_microbatches(reqs, eng.buckets):
+        batch, _ = pad_stack([r.payload for r in mb.requests], mb.bucket)
+        for j, r in enumerate(mb.requests):
+            assert res[id(r)].device.type == device.type and res[id(r)].dtype == torch.float32
+            direct = adapter.forward(cfg, eng.store.materialize(r.instance_id), batch)[j]
+            torch.testing.assert_close(res[id(r)], direct, **TOL["bfloat16"])
+    return stats, launches
+
+
+@pytest.mark.gpu
+def test_merged_ssm_group_serves_and_streams_through_the_kernels(cuda_device):
+    """A merged trio of a small bf16 mamba (state dim 16): served through
+    mamba_scan and bank_matmul, then streamed (mamba_scan at S = 1 with the
+    state from the pool) with tokens equal to the teacher-forced unpaged
+    replay wherever the replay's top-2 margin exceeds the bf16 tolerance."""
+    from repro_torch.models.ssm import MambaConfig
+    from repro_torch.serving.decode import DecodeRequest, replay_unpaged
+
+    cfg = MambaConfig(name="gpu-mamba", n_layers=2, d_model=128, d_inner=256, d_state=16,
+                      dt_rank=8, vocab_size=300, tie_embeddings=False, dtype="bfloat16")
+    mids = ("A", "B", "C")
+    adapter, eng = _merged_engine("ssm", cfg, mids, cuda_device, (1, 2, 4))
+    stats, launches = _serve_and_check(adapter, cfg, eng, mids, cuda_device, 19)
+    assert launches["mamba_scan"] > 0 and launches["bank_matmul"] > 0
+    assert launches["flash_attention"] == 0
+    assert stats["suffix_dispatches"] == stats["microbatches"]
+    g = torch.Generator().manual_seed(7)
+    reqs = [DecodeRequest(m, torch.randint(0, cfg.vocab_size, (9,), generator=g).numpy(),
+                          max_new_tokens=6) for _ in range(2) for m in mids]
+    ops.reset_kernel_launches()
+    stats = eng.serve_decode(reqs, page_size=4, num_pages=32, max_slots=6, max_len=16,
+                             record_logits=True, chunked_prefill=True)
+    launches = ops.kernel_launches()
+    assert stats["completed"] == len(reqs) and stats["pool_identity_ok"]
+    assert stats["trunk_dispatches"] == stats["bank_dispatches"] == stats["group_steps"] > 0
+    assert launches["mamba_scan"] > 0 and launches["bank_matmul"] > 0
+    dec = eng.last_decoder
+    for c in dec.completions:
+        for i, row in enumerate(replay_unpaged(dec, c)):
+            row_t, got = torch.from_numpy(row), torch.from_numpy(c.logits[i])
+            torch.testing.assert_close(got, row_t, **TOL["bfloat16"])
+            top2 = torch.topk(row_t, 2).values
+            if top2[0] - top2[1] > 2e-2 + 2e-2 * top2[0].abs():
+                assert c.tokens[i] == int(row_t.argmax())
+
+
+@pytest.mark.gpu
+def test_merged_tied_hybrid_group_serves_through_the_kernels(cuda_device):
+    """A merged trio of a small bf16 griffin with recurrentgemma's shape of
+    attention (head dim 256, 4 query heads on one kv head, a window shorter
+    than the sequence) and a tied head: rg_lru_scan and flash_attention
+    run, the heads fan out per member (no bank)."""
+    from repro_torch.models.griffin import GriffinConfig
+
+    cfg = GriffinConfig(name="gpu-griffin", n_layers=3, d_model=128, d_rnn=128, n_heads=4,
+                        n_kv_heads=1, head_dim=256, d_ff=256, vocab_size=300, window=8,
+                        tie_embeddings=True, dtype="bfloat16")
+    mids = ("A", "B", "C")
+    adapter, eng = _merged_engine("hybrid", cfg, mids, cuda_device, (1, 2, 4))
+    stats, launches = _serve_and_check(adapter, cfg, eng, mids, cuda_device, 24)
+    assert launches["rg_lru_scan"] > 0 and launches["flash_attention"] > 0
+    assert launches["bank_matmul"] == 0
+    assert stats["suffix_dispatches"] == stats["suffix_runs"] > stats["microbatches"]

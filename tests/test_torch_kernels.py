@@ -10,7 +10,10 @@ Tolerances:
     package's own kernel-test tolerances (tests/test_kernels.py TOL,
     2e-3 float32 / 2e-2 bfloat16) — a bf16 output may round to the
     neighbouring value, and the Pallas attention casts probabilities to
-    the value dtype before P @ V.
+    the value dtype before P @ V;
+  * the scans widen bf16 inputs to float32 before any arithmetic in both
+    packages, so in either input dtype they are held at 1e-5 against the
+    JAX plain version and at the float32 TOL against the Pallas kernel.
 """
 from pathlib import Path
 
@@ -23,14 +26,18 @@ from repro.kernels import ref as jref
 from repro.kernels.bank_matmul import bank_matmul as pallas_bank_matmul
 from repro.kernels.decode_attention import decode_attention as pallas_decode
 from repro.kernels.flash_attention import flash_attention as pallas_flash
+from repro.kernels.mamba_scan import mamba_scan as pallas_mamba
 from repro.kernels.page_gather import page_gather as pallas_gather
+from repro.kernels.rg_lru import rg_lru_scan as pallas_rg_lru
 from repro_torch import bridge
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import bank_matmul as kbank
 from repro_torch.kernels import decode_attention as kdecode
 from repro_torch.kernels import flash_attention as kflash
+from repro_torch.kernels import mamba_scan as kmamba
 from repro_torch.kernels import page_gather as kgather
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import rg_lru as krglru
 
 TIGHT = dict(rtol=1e-5, atol=1e-5)
 TOL = {"float32": dict(rtol=2e-3, atol=2e-3), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -167,6 +174,72 @@ def test_page_gather_ref_is_bitwise_the_jax_ref_and_pallas(dtype, P, W, N):
 
 
 # ---------------------------------------------------------------------------
+# the scans: mamba_scan and rg_lru_scan
+# ---------------------------------------------------------------------------
+
+SCAN_CASES = [  # B, S, chunk of the Pallas kernel, zero h0
+    (2, 16, 16, True),   # one exact chunk from a zero state
+    (2, 13, 16, False),  # ragged S: the Pallas kernel gets identity padding
+    (3, 1, 1, False),    # one decode step carrying a state
+]
+
+
+def _identity_pad(S, chunk, arrays, fills):
+    """Pad the time axis up to a chunk multiple with identity steps, as the
+    JAX models' ``_run_scan`` / ``_run_scan_diag`` do for the Pallas kernel."""
+    pad = (-S) % chunk
+    return [jnp.pad(a, [(0, 0), (0, pad), (0, 0)], constant_values=f)
+            for a, f in zip(arrays, fills)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,chunk,zero_h0", SCAN_CASES)
+def test_mamba_scan_ref_matches_jax_ref_and_pallas(dtype, B, S, chunk, zero_h0):
+    di, n = 64, 8
+    rng = np.random.default_rng(S + B)
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, di)))).astype(np.float32)
+    arrs = [dt] + [rng.standard_normal(s).astype(np.float32)
+                   for s in ((B, S, di), (B, S, n), (B, S, n))]
+    A = -np.exp(0.5 * rng.standard_normal((di, n))).astype(np.float32)
+    h0 = (np.zeros if zero_h0 else rng.standard_normal)((B, di, n)).astype(np.float32)
+    jx = [jnp.asarray(a).astype(JDT[dtype]) for a in arrs]
+    tx = [bridge.array_to_tensor(np.asarray(a), torch.device("cpu")) for a in jx]
+    ty, th = tref.mamba_scan_ref(*tx, torch.from_numpy(A), torch.from_numpy(h0))
+    assert ty.dtype == th.dtype == torch.float32
+    assert ty.shape == (B, S, di) and th.shape == (B, di, n)
+    jy, jh = jref.mamba_scan_ref(*jx, jnp.asarray(A), jnp.asarray(h0))
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **TIGHT)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TIGHT)
+    padded = _identity_pad(S, chunk, jx, (0.0,) * 4)  # dt = dtx = 0: exp(0) h + 0
+    py, ph = pallas_mamba(*padded, jnp.asarray(A), jnp.asarray(h0), chunk=chunk,
+                          block_di=di, interpret=True)
+    np.testing.assert_allclose(ty.numpy(), np.asarray(py)[:, :S], **TOL["float32"])
+    np.testing.assert_allclose(th.numpy(), np.asarray(ph), **TOL["float32"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,chunk,zero_h0", SCAN_CASES)
+def test_rg_lru_ref_matches_jax_ref_and_pallas(dtype, B, S, chunk, zero_h0):
+    d = 128
+    rng = np.random.default_rng(S * B)
+    a = (1.0 / (1.0 + np.exp(-rng.standard_normal((B, S, d))))).astype(np.float32)
+    b = rng.standard_normal((B, S, d)).astype(np.float32)
+    h0 = (np.zeros if zero_h0 else rng.standard_normal)((B, d)).astype(np.float32)
+    ja, jb = (jnp.asarray(x).astype(JDT[dtype]) for x in (a, b))
+    ta, tb = (bridge.array_to_tensor(np.asarray(x), torch.device("cpu")) for x in (ja, jb))
+    ty, th = tref.rg_lru_ref(ta, tb, torch.from_numpy(h0))
+    assert ty.dtype == th.dtype == torch.float32
+    assert ty.shape == (B, S, d) and th.shape == (B, d)
+    jy, jh = jref.rg_lru_ref(ja, jb, jnp.asarray(h0))
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **TIGHT)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), **TIGHT)
+    pa, pb = _identity_pad(S, chunk, (ja, jb), (1.0, 0.0))  # a = 1, b = 0
+    py, ph = pallas_rg_lru(pa, pb, jnp.asarray(h0), chunk=chunk, block_d=d, interpret=True)
+    np.testing.assert_allclose(ty.numpy(), np.asarray(py)[:, :S], **TOL["float32"])
+    np.testing.assert_allclose(th.numpy(), np.asarray(ph), **TOL["float32"])
+
+
+# ---------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------
 
@@ -185,8 +258,16 @@ def test_ops_dispatch_cpu_tensors_to_plain_versions_and_count():
     assert torch.equal(ops.decode_attention(q[:, 0], k, v, lens),
                        tref.decode_attention_ref(q[:, 0], k, v, lens))
     assert torch.equal(ops.page_gather(x, table), tref.page_gather_ref(x, table))
+    _, (dt, Bm, A, h) = _inputs(2, [(2, 3, 4), (2, 3, 8), (4, 8), (2, 4, 8)], "float32")
+    for got, want in zip(ops.mamba_scan(dt, dt, Bm, Bm, A, h),
+                         tref.mamba_scan_ref(dt, dt, Bm, Bm, A, h)):
+        assert torch.equal(got, want)
+    for got, want in zip(ops.rg_lru_scan(dt, dt, h[:, :, 0]),
+                         tref.rg_lru_ref(dt, dt, h[:, :, 0])):
+        assert torch.equal(got, want)
     assert ops.dispatch_counts() == {"flash_attention": 2, "bank_matmul": 1,
-                                     "decode_attention": 1, "page_gather": 1}
+                                     "decode_attention": 1, "page_gather": 1,
+                                     "mamba_scan": 1, "rg_lru_scan": 1}
     assert ops.kernel_launches() == {name: 0 for name in ops.OP_TABLE}
     ops.reset_dispatch_counts()
     assert ops.dispatch_counts() == {}
@@ -202,6 +283,12 @@ def test_kernel_wrappers_take_cuda_tensors_only():
         kdecode.decode_attention(q[:, 0], q, q, torch.ones(1, dtype=torch.int32))
     with pytest.raises(ValueError, match="CUDA tensors only"):
         kgather.page_gather(x, torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        kmamba.mamba_scan(x[None], x[None], w, w, x.t(), w)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        krglru.rg_lru_scan(x[None], x[None], x)
+    with pytest.raises(ValueError, match="no implementation for device meta"):
+        ops.rg_lru_scan(x[None].to("meta"), x[None].to("meta"), x.to("meta"))
     with pytest.raises(ValueError, match="no implementation for device meta"):
         ops.page_gather(x.to("meta"), torch.zeros(2, dtype=torch.int32))
     with pytest.raises(ValueError, match="no implementation for device meta"):
@@ -211,7 +298,7 @@ def test_kernel_wrappers_take_cuda_tensors_only():
 def test_op_table_names_each_kernel_its_source_and_the_tpu_kernel():
     root = Path(__file__).resolve().parents[1]
     assert set(ops.OP_TABLE) == {"flash_attention", "bank_matmul", "decode_attention",
-                                 "page_gather"}
+                                 "page_gather", "mamba_scan", "rg_lru_scan"}
     assert {str(p.relative_to(root)) for p in _build.sources()} == \
         {s.source for s in ops.OP_TABLE.values()}
     for spec in ops.OP_TABLE.values():
