@@ -8,16 +8,21 @@ exits non-zero; every phase opens with a ``phase_start`` line giving the
 device memory still allocated and closes with its seconds):
 
 1. device: name, count, torch version and the card's power limit;
-2. build: compiles the hand-written CUDA kernels from ``kernels/csrc``;
+2. build: compiles the hand-written CUDA kernels from ``kernels/csrc``,
+   fails on any ptxas spill, and counts the tensor-core instructions
+   (``HGMMA``, ``HMMA``) of each kernel function in the built library;
 3. kernels: each Hopper kernel against its plain PyTorch version on the
-   card at the main paths' shapes and a few edge shapes, with kernel,
-   plain, library and bound times;
+   card at the main paths' shapes (the bank also at the falcon-mamba and
+   decode heads) and a few edge shapes, with the route taken, kernel,
+   plain, library and bound times; the wgmma bank also bitwise against
+   its own rows at M = 1 and N = 1;
 4. small_cnn merge-and-serve: two members, trunk merged, through
    ``MergeAwareEngine``; completions against direct forwards;
 5. for each full-width group below, three fine-tune variants (shared base,
    trunk perturbed by 0.005, head by 1.0), every trunk group merged, 8
    requests of 128 tokens per member served through ``MergeAwareEngine``
-   (``<prefix>_merge`` / ``_serve``): kernel launch counts, residency, and
+   (``<prefix>_merge`` / ``_serve``): kernel launch counts (every bank and
+   flash launch on the tensor-core route), residency, and
    every served row against the member's direct forward on the same
    padded batch; then one more micro-batch under ``torch.profiler``
    (``_profile``: device time by kernel, device idle share):
@@ -37,9 +42,10 @@ device memory still allocated and closes with its seconds):
 
 Each family's store, engine and decoder are released before the next
 family's phase.  Then the ``{"kernels": [...]}`` line (each kernel's
-launches summed over every serve and decode run above) and, last, the
-device line.  Needs one card; imports nothing of JAX and nothing of the
-JAX package.
+launches summed over every serve and decode run above, by route where a
+kernel has two; ``route`` is "cuda" for all, ``cuda_route`` the design
+the main row took) and, last, the device line.  Needs one card; imports
+nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
@@ -113,6 +119,19 @@ def bound(nbytes: float, ops: float, dtype: str) -> tuple:
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def kernel_name(signature: str) -> str:
+    """A demangled kernel signature without its parameter list (the last
+    parenthesised group; template arguments such as ``<(int)256>`` stay)."""
+    if not signature.endswith(")"):
+        return signature
+    depth = 0
+    for i in range(len(signature) - 1, -1, -1):
+        depth += {")": 1, "(": -1}.get(signature[i], 0)
+        if depth == 0:
+            return signature[:i]
+    return signature
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
@@ -130,8 +149,15 @@ def check_bank(torch, case: str, N, M, K, F, dtype, broadcast, bias, reps, gen):
     x = torch.randn((M, K) if broadcast else (N, M, K), generator=gen, device="cuda").to(dt)
     w = torch.randn((N, K, F), generator=gen, device="cuda").to(dt)
     b = torch.randn((N, F), generator=gen, device="cuda").to(dt) if bias else None
+    route = kmod.route(x, w)
     out = kmod.bank_matmul(x, w, b)
     torch.cuda.synchronize()
+    if route == "wgmma":  # a row's bits do not depend on M or N
+        x1 = x[:1] if broadcast else x[:, :1].contiguous()
+        assert torch.equal(kmod.bank_matmul(x1, w, b), out[:, :1]), f"bank {case}: M = 1 differs"
+        assert torch.equal(kmod.bank_matmul(x if broadcast else x[:1], w[:1],
+                                            b[:1] if bias else None), out[:1]), \
+            f"bank {case}: N = 1 differs"
     plain = bank_matmul_ref(x, w, b)
     err = (out - plain).abs().max().item()
     torch.testing.assert_close(out, plain, **TOL[dtype])
@@ -146,8 +172,9 @@ def check_bank(torch, case: str, N, M, K, F, dtype, broadcast, bias, reps, gen):
     library_ms = cuda_ms(torch, lib, reps) if lib is not None else None
     ops = 2.0 * N * M * K * F + (N * M * F if bias else 0)
     bound_ms, bound_by = bound(nbytes(x, w, b, out), ops, dtype)
-    row = dict(kernel="bank_matmul", case=case, shape=dict(N=N, M=M, K=K, F=F),
-               dtype=dtype, broadcast=broadcast, bias=bias, max_abs_err=err,
+    row = dict(kernel="bank_matmul", case=case, route=route, shape=dict(N=N, M=M, K=K, F=F),
+               dtype=dtype, broadcast=broadcast, bias=bias, row_stable_bitwise=route == "wgmma",
+               max_abs_err=err,
                tol=TOL[dtype], ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                bound_ms=bound_ms, bound_by=bound_by)
     emit("kernel_check", **row)
@@ -164,6 +191,7 @@ def check_flash(torch, case: str, B, S, Hq, Hkv, D, dtype, window, reps, gen):
     q = torch.randn((B, S, Hq, D), generator=gen, device="cuda").to(dt)
     k = torch.randn((B, S, Hkv, D), generator=gen, device="cuda").to(dt)
     v = torch.randn((B, S, Hkv, D), generator=gen, device="cuda").to(dt)
+    route = kmod.route(q)
     out = kmod.flash_attention(q, k, v, causal=True, window=window)
     torch.cuda.synchronize()
     plain = flash_attention_ref(q, k, v, causal=True, window=window)
@@ -189,7 +217,8 @@ def check_flash(torch, case: str, B, S, Hq, Hkv, D, dtype, window, reps, gen):
     pairs = int(mask.sum().item())  # the (query, key) pairs this mask keeps
     ops = 4.0 * D * pairs * B * Hq  # QK^T and PV, 2 D operations each per pair
     bound_ms, bound_by = bound(nbytes(q, k, v, out), ops, dtype)
-    row = dict(kernel="flash_attention", case=case, shape=dict(B=B, S=S, Hq=Hq, Hkv=Hkv, D=D),
+    row = dict(kernel="flash_attention", case=case, route=route,
+               shape=dict(B=B, S=S, Hq=Hq, Hkv=Hkv, D=D),
                dtype=dtype, window=window, max_abs_err=err, tol=TOL[dtype], ms=ms,
                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
     emit("kernel_check", **row)
@@ -334,6 +363,14 @@ def kernel_checks(torch) -> dict:
     # stablelm-1.6b head: 3 members, bucket 8 x 128 tokens, d 2048, vocab 100352
     main["bank_matmul"] = check_bank(torch, "stablelm-head", 3, 1024, 2048, 100352,
                                      "bfloat16", False, False, 5, gen)
+    # falcon-mamba-7b head (d 4096, vocab 65024); the decode heads, 8 rows a member
+    check_bank(torch, "falcon-mamba-head", 3, 1024, 4096, 65024, "bfloat16", False, False, 5,
+               gen)
+    check_bank(torch, "stablelm-decode-head", 3, 8, 2048, 100352, "bfloat16", False, False,
+               20, gen)
+    check_bank(torch, "falcon-mamba-decode-head", 3, 8, 4096, 65024, "bfloat16", False, False,
+               20, gen)
+    check_bank(torch, "aligned-bias", 3, 100, 264, 520, "bfloat16", True, True, 50, gen)
     check_bank(torch, "small_cnn-fc1", 2, 8, 16, 64, "float32", True, True, 50, gen)
     check_bank(torch, "small_cnn-fc2", 2, 8, 64, 4, "float32", False, True, 50, gen)
     check_bank(torch, "ragged", 3, 100, 70, 33, "bfloat16", False, True, 50, gen)
@@ -432,6 +469,12 @@ def served_vs_direct(torch, adapter, cfg, store, eng, reqs, dtype) -> float:
     return worst
 
 
+def tensor_core_routes_only(routes: dict) -> None:
+    """Every bank_matmul and flash_attention launch of an LM phase (bf16
+    throughout) took the tensor-core route."""
+    assert routes["bank_matmul"]["simt"] == 0 and routes["flash_attention"]["simt"] == 0, routes
+
+
 def small_cnn_phase(torch) -> None:
     from repro_torch.core import ParamStore
     from repro_torch.kernels import ops
@@ -451,12 +494,14 @@ def small_cnn_phase(torch) -> None:
         eng.submit(r)
     ops.reset_kernel_launches()
     stats = eng.serve(horizon_s=600.0, warmup=reqs[0].payload)
-    launches = ops.kernel_launches()
+    launches, routes = ops.kernel_launches(), ops.route_launches()
     err = served_vs_direct(torch, adapter, cfg, store, eng, reqs, "float32")
     assert stats["completed"] == len(reqs), stats
     assert launches["bank_matmul"] > 0, launches
+    # float32 heads (F = 4) stay on the CUDA-core route
+    assert routes["bank_matmul"] == {"wgmma": 0, "simt": launches["bank_matmul"]}, routes
     emit("small_cnn_serve", shared_keys=shared, stats=stats, launches=launches,
-         max_abs_err_vs_forward=err, tol=TOL["float32"])
+         route_launches=routes, max_abs_err_vs_forward=err, tol=TOL["float32"])
 
 
 # ---------------------------------------------------------------------------
@@ -511,10 +556,11 @@ def lm_serve_phase(torch, prefix: str, family: str, cfg, capacity_bytes: int,
     """Three ``lm_zoo`` variants at full width, every trunk group merged, 8
     requests of 128 tokens per member served through ``MergeAwareEngine``
     (lines ``<prefix>_merge`` / ``_serve`` / ``_profile``).  ``expect`` are
-    the kernels that must launch.  An untied head fans out through the
-    suffix bank (one dispatch per banked micro-batch); a tied head reads
-    the shared embedding table and runs once per member of a micro-batch,
-    with no bank.  Returns (kernel launches of the serve, engine)."""
+    the kernels that must launch; every bank and flash launch must take the
+    tensor-core route.  An untied head fans out through the suffix bank (one
+    dispatch per banked micro-batch); a tied head reads the shared embedding
+    table and runs once per member of a micro-batch, with no bank.  Returns
+    (kernel launches of the serve, their routes, engine)."""
     from repro_torch.core import ParamStore
     from repro_torch.kernels import ops
     from repro_torch.models.registry import get_adapter
@@ -551,20 +597,22 @@ def lm_serve_phase(torch, prefix: str, family: str, cfg, capacity_bytes: int,
     t0 = time.perf_counter()
     stats = eng.serve(horizon_s=600.0, warmup=reqs[0].payload)
     serve_s = time.perf_counter() - t0
-    launches = ops.kernel_launches()
+    launches, routes = ops.kernel_launches(), ops.route_launches()
     peak = torch.cuda.max_memory_allocated()
     mbs = deadline_microbatches(reqs, BUCKETS)
     members = [len({r.instance_id for r in mb.requests}) for mb in mbs]
     banked = sum(1 for m in members if m > 1)
     assert stats["completed"] == len(reqs), stats
     assert all(launches[k] > 0 for k in expect), launches
+    tensor_core_routes_only(routes)
     if cfg.tie_embeddings:
         assert launches["bank_matmul"] == 0, launches
         assert stats["suffix_dispatches"] == stats["suffix_runs"] == sum(members), stats
     else:
         assert stats["suffix_dispatches"] == banked, (stats, banked)
     err = served_vs_direct(torch, adapter, cfg, store, eng, reqs, "bfloat16")
-    emit(f"{prefix}_serve", stats=stats, launches=launches, banked_microbatches=banked,
+    emit(f"{prefix}_serve", stats=stats, launches=launches, route_launches=routes,
+         banked_microbatches=banked,
          member_suffixes=sum(members), serve_wall_s_with_warmup=serve_s,
          wall_s_per_microbatch=stats["elapsed_s"] / max(stats["microbatches"], 1),
          peak_memory_bytes=peak, max_abs_err_vs_forward=err, tol=TOL["bfloat16"],
@@ -573,7 +621,7 @@ def lm_serve_phase(torch, prefix: str, family: str, cfg, capacity_bytes: int,
     profile_microbatch(torch, eng, cfg, gen, stats["elapsed_s"] / stats["microbatches"],
                        f"{prefix}_profile")
     emit("phase_end", name=f"{prefix}_profile", seconds=time.perf_counter() - t_phase)
-    return launches, eng
+    return launches, routes, eng
 
 
 def profile_microbatch(torch, eng, cfg, gen, served_wall_s: float, name: str) -> None:
@@ -672,10 +720,11 @@ def replay_check(torch, dec, tol: dict) -> dict:
                                    argmax_mismatches=ctl_mismatches))
 
 
-def decode_phase(torch, prefix: str, eng, cfg, expect: tuple) -> dict:
+def decode_phase(torch, prefix: str, eng, cfg, expect: tuple) -> tuple:
     """Streaming decode of a merged group (lines ``<prefix>_decode`` and
     ``<prefix>_decode_profile``); ``expect`` are the kernels that must
-    launch.  Returns the kernel launches of the streaming run."""
+    launch; every bank launch must take the tensor-core route.  Returns the
+    kernel launches of the streaming run and their routes."""
     from repro_torch.kernels import ops
 
     t_phase = start_phase(torch, f"{prefix}_decode")
@@ -687,7 +736,7 @@ def decode_phase(torch, prefix: str, eng, cfg, expect: tuple) -> dict:
     stats = eng.serve_decode(reqs, horizon_s=900.0, record_logits=True, **DECODE_KW)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = ops.kernel_launches()
+    launches, routes = ops.kernel_launches(), ops.route_launches()
     peak = torch.cuda.max_memory_allocated()
     dec = eng.last_decoder
     pool = next(iter(dec._pools.values()))
@@ -697,12 +746,13 @@ def decode_phase(torch, prefix: str, eng, cfg, expect: tuple) -> dict:
     assert stats["trunk_dispatches"] == stats["bank_dispatches"] == stats["group_steps"] > 0, stats
     assert stats["singleton_dispatches"] == 0, stats
     assert all(launches[name] > 0 for name in expect), launches
+    tensor_core_routes_only(routes)
     # a KV pool is read through two gathers (k and v) per attention
     assert launches["page_gather"] == 2 * launches["decode_attention"], launches
     replay = replay_check(torch, dec, TOL["bfloat16"])
     emit(f"{prefix}_decode", requests=len(reqs), prompt_tokens=PROMPT_LEN,
          new_tokens=NEW_TOKENS, knobs={k: v for k, v in DECODE_KW.items()}, stats=stats,
-         launches=launches, tokens_per_s=stats["tokens_per_s"],
+         launches=launches, route_launches=routes, tokens_per_s=stats["tokens_per_s"],
          wall_s_per_step=stats["elapsed_s"] / stats["steps"],
          serve_decode_wall_s_with_warmup=wall_s, pool_bytes=nbytes(pool.k, pool.v),
          pool_high_water_pages=stats["pool_high_water_pages"], peak_memory_bytes=peak,
@@ -710,7 +760,7 @@ def decode_phase(torch, prefix: str, eng, cfg, expect: tuple) -> dict:
     t_phase = start_phase(torch, f"{prefix}_decode_profile")
     profile_decode_steps(torch, eng, cfg, f"{prefix}_decode_profile")
     emit("phase_end", name=f"{prefix}_decode_profile", seconds=time.perf_counter() - t_phase)
-    return launches
+    return launches, routes
 
 
 def profile_decode_steps(torch, eng, cfg, name: str, timed: int = 5) -> None:
@@ -781,10 +831,18 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.load_library()
+    build_s = time.perf_counter() - t0
     ptxas = [line.strip() for log in _build.build_info.get("ptxas", {}).values()
              for line in log.splitlines() if "registers" in line or "spill" in line]
-    emit("build", seconds=time.perf_counter() - t0, cached=_build.build_info["cached"],
-         ptxas=ptxas)
+    spilling = [line for line in ptxas if "spill" in line and " 0 bytes spill stores" not in line]
+    # tensor-core instructions in each kernel function of the built library
+    sass = _build.sass_mma_counts(_build.library_path())
+    mma = {kernel_name(name): c for name, c in sass.items()}
+    emit("build", seconds=build_s, cached=_build.build_info["cached"], ptxas=ptxas,
+         spilling=spilling, tensor_core_instructions=mma)
+    assert not spilling, spilling
+    assert any("bank_wgmma_kernel" in n and c["HGMMA"] > 0 for n, c in mma.items()), mma
+    assert sum("flash_mma_kernel" in n and c["HMMA"] > 0 for n, c in mma.items()) == 3, mma
 
     from repro_torch.configs import falcon_mamba_7b, recurrentgemma_9b, stablelm_1_6b
 
@@ -805,11 +863,18 @@ def main() -> int:
          ("rg_lru_scan", "flash_attention"), None),
     ]
     launches = collections.Counter()  # summed over every serve and decode run
+    route_totals = collections.defaultdict(collections.Counter)  # the same, by route
     for prefix, family, cfg, capacity, serve_expect, decode_expect in runs:
-        serve_launches, eng = lm_serve_phase(torch, prefix, family, cfg, capacity, serve_expect)
+        serve_launches, routes, eng = lm_serve_phase(torch, prefix, family, cfg, capacity,
+                                                     serve_expect)
         launches.update(serve_launches)
+        for name, r in routes.items():
+            route_totals[name].update(r)
         if decode_expect is not None:
-            launches.update(decode_phase(torch, prefix, eng, cfg, decode_expect))
+            decode_launches, routes = decode_phase(torch, prefix, eng, cfg, decode_expect)
+            launches.update(decode_launches)
+            for name, r in routes.items():
+                route_totals[name].update(r)
         del eng  # the next family's start_phase frees this one's store
     assert all(launches[name] > 0 for name in main_rows), launches
 
@@ -817,6 +882,8 @@ def main() -> int:
     for name, row in main_rows.items():
         spec = ops.OP_TABLE[name]
         kernels.append(dict(name=name, route="cuda", source=spec.source, replaces=spec.replaces,
+                            cuda_route=row.get("route", "cuda"),
+                            launches_by_route=dict(route_totals.get(name, {})) or None,
                             launches=launches[name], max_abs_err=row["max_abs_err"],
                             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                             bound_by=row["bound_by"], library_ms=row["library_ms"]))

@@ -54,12 +54,17 @@ def source_hash() -> str:
     return h.hexdigest()
 
 
+def library_path() -> Path:
+    """Where the library built from the current sources lives."""
+    return BUILD_ROOT / source_hash() / "libkernels.so"
+
+
 def build() -> Path:
     """Compile every source (one ``nvcc`` each, all started together), link
     them into ``libkernels.so`` and return its path.  Reuses a library built
     from identical sources."""
-    out_dir = BUILD_ROOT / source_hash()
-    lib = out_dir / "libkernels.so"
+    lib = library_path()
+    out_dir = lib.parent
     if lib.is_file():
         build_info.update(cached=True, seconds=0.0)
         return lib
@@ -99,12 +104,16 @@ def load_library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         vp, ci, cf, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-        lib.bank_matmul_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci,
-                                           ci, ci, vp]
-        lib.bank_matmul_launch.restype = ci
-        lib.flash_attention_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci,
-                                               ci, ci, ci, cf, ci, vp]
-        lib.flash_attention_launch.restype = ci
+        lib.bank_matmul_simt_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci,
+                                                ci, ci, vp]
+        lib.bank_matmul_simt_launch.restype = ci
+        lib.bank_matmul_wgmma_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci,
+                                                 ci, vp]
+        lib.bank_matmul_wgmma_launch.restype = ci
+        for name in ("flash_attention_simt_launch", "flash_attention_mma_launch"):
+            getattr(lib, name).argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
+                                           ci, cf, vp]
+            getattr(lib, name).restype = ci
         lib.page_gather_launch.argtypes = [vp, vp, vp, cl, cl, cl, vp]
         lib.page_gather_launch.restype = ci
         lib.decode_attention_launch.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci,
@@ -117,6 +126,49 @@ def load_library() -> ctypes.CDLL:
         lib.rg_lru_launch.restype = ci
         _lib = lib
     return _lib
+
+
+def find_tool(name: str) -> Optional[str]:
+    """A CUDA toolkit binary (``cuobjdump``, ``cu++filt``) beside ``nvcc``."""
+    found = shutil.which(name)
+    if found:
+        return found
+    try:
+        cand = Path(find_nvcc()).parent / name
+    except RuntimeError:
+        return None
+    return str(cand) if cand.is_file() else None
+
+
+def sass_mma_counts(lib_path: Path) -> dict:
+    """{kernel function: {"HGMMA": n, "HMMA": n}} from ``cuobjdump -sass`` of
+    the built library: the warpgroup (``HGMMA``) and warp (``HMMA``)
+    tensor-core instructions each compiled kernel contains.  Names are
+    demangled with ``cu++filt`` where it exists."""
+    tool = find_tool("cuobjdump")
+    if tool is None:
+        raise RuntimeError("repro_torch: cuobjdump not found beside nvcc")
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        line = line.strip()
+        if line.startswith("Function :"):
+            name = line.split(":", 1)[1].strip()
+            counts[name] = {"HGMMA": 0, "HMMA": 0}
+        elif name is not None and line.startswith("/*"):
+            words = [w for w in line.split("*/", 1)[-1].split() if not w.startswith("@")]
+            op = words[0].split(".")[0] if words else ""  # e.g. HGMMA.64x256x16.F32.BF16
+            if op in counts[name]:
+                counts[name][op] += 1
+    filt = find_tool("cu++filt")
+    if filt is not None and counts:
+        names = list(counts)
+        plain = subprocess.run([filt], input="\n".join(names), capture_output=True,
+                               text=True, check=True).stdout.splitlines()
+        if len(plain) == len(names):
+            counts = {p: counts[n] for p, n in zip(plain, names)}
+    return counts
 
 
 def check(err: int, name: str) -> None:

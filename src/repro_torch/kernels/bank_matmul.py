@@ -3,10 +3,12 @@
     out[n] = x[n] @ w[n] (+ b[n])        n = 0..N-1 bank members
 
 ``x`` is banked ``(N, M, K)`` or broadcast ``(M, K)``; ``w`` is ``(N, K, F)``
-and ``b`` ``(N, F)``; float32 or bfloat16 in, float32 out.  The CUDA kernel
-masks ragged M, K and F, so any shape is taken (the Pallas version asserts
-block divisibility).  This function takes CUDA tensors only; the ops layer
-sends CPU tensors to ``ref.bank_matmul_ref``.
+and ``b`` ``(N, F)``; float32 or bfloat16 in, float32 out.  Two kernels,
+picked by :func:`route` from dtype and shape alone: bf16 with 16-byte rows
+takes the tensor-core kernel (``"wgmma"``, TMA-fed), everything else the
+CUDA-core one (``"simt"``, which masks any ragged M, K and F).  This
+function takes CUDA tensors only; the ops layer sends CPU tensors to
+``ref.bank_matmul_ref``.
 """
 from __future__ import annotations
 
@@ -17,6 +19,21 @@ import torch
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = ("wgmma", "simt")
+
+
+def route(x: torch.Tensor, w: torch.Tensor) -> str:
+    """``"wgmma"`` for bf16 x and w whose rows the TMA can describe (K and F
+    multiples of 8, i.e. 16-byte rows, and 16-byte aligned data, which a
+    tensor of such rows has unless it is a view starting mid-row), else
+    ``"simt"``.  float32 stays on CUDA cores: TF32 would keep about three
+    digits where the reference sums exact f32 products."""
+    K, F = w.shape[-2], w.shape[-1]
+    aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    if w.dtype == torch.bfloat16 and x.dtype == torch.bfloat16 and K % 8 == 0 \
+            and F % 8 == 0 and aligned:
+        return "wgmma"
+    return "simt"
 
 
 def bank_matmul(x: torch.Tensor, w: torch.Tensor,
@@ -42,16 +59,26 @@ def bank_matmul(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"bank_matmul: b {tuple(b.shape)} != {(N, F)}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("bank_matmul: inputs must be contiguous")
+    path = route(x, w)
     out = torch.empty((N, M, F), dtype=torch.float32, device=w.device)
     lib = _build.load_library()
+    bias = b.data_ptr() if b is not None else None
     with torch.cuda.device(w.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.bank_matmul_launch(
-            x.data_ptr(), w.data_ptr(), b.data_ptr() if b is not None else None,
-            out.data_ptr(), N, M, K, F, int(broadcast), _DTYPES[w.dtype], stream)
-    _build.check(err, "bank_matmul")
+        if path == "wgmma":
+            err = lib.bank_matmul_wgmma_launch(
+                x.data_ptr(), w.data_ptr(), bias, out.data_ptr(), N, M, K, F,
+                int(broadcast), stream)
+        else:
+            err = lib.bank_matmul_simt_launch(
+                x.data_ptr(), w.data_ptr(), bias, out.data_ptr(), N, M, K, F,
+                int(broadcast), _DTYPES[w.dtype], stream)
+    _build.check(err, f"bank_matmul ({path})")
     bank_matmul.launches += 1
+    bank_matmul.route_launches[path] += 1
     return out
 
 
-bank_matmul.launches = 0  # kernel launches since the last ops.reset_kernel_launches()
+# kernel launches since the last ops.reset_kernel_launches(), in all and by route
+bank_matmul.launches = 0
+bank_matmul.route_launches = dict.fromkeys(ROUTES, 0)

@@ -2,8 +2,10 @@
 
 Causal or sliding-window grouped-query attention over q ``(B, S, Hq, D)``
 and k, v ``(B, S, Hkv, D)``; the output has q's dtype.  Head dims 64, 128
-and 256 are compiled; ragged S is masked by the kernel.  This function
-takes CUDA tensors only; the ops layer sends CPU tensors to
+and 256 are compiled; ragged S is masked by the kernel.  Two kernels,
+picked by :func:`route` from dtype and head dim alone: bf16 takes the
+tensor-core kernel (``"mma"``), float32 the CUDA-core one (``"simt"``).
+This function takes CUDA tensors only; the ops layer sends CPU tensors to
 ``ref.flash_attention_ref``.
 """
 from __future__ import annotations
@@ -15,8 +17,17 @@ import torch
 
 from repro_torch.kernels import _build
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (64, 128, 256)
+ROUTES = ("mma", "simt")
+
+
+def route(q: torch.Tensor) -> str:
+    """``"mma"`` (tensor cores, bf16 tiles) for bf16 q (k and v share its
+    dtype) at a compiled head dim, else ``"simt"``.  float32 stays on CUDA
+    cores: TF32 would keep about three digits where the reference sums f32
+    products."""
+    return "mma" if q.dtype == torch.bfloat16 and q.shape[-1] in HEAD_DIMS else "simt"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -43,17 +54,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: inputs must be contiguous")
     scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
+    path = route(q)
     out = torch.empty_like(q)
     lib = _build.load_library()
+    launch = lib.flash_attention_mma_launch if path == "mma" else lib.flash_attention_simt_launch
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, S, Hq, Hkv, D, int(causal), 0 if window is None else int(window),
-            scale, _DTYPES[q.dtype], stream)
-    _build.check(err, "flash_attention")
+        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                     B, S, Hq, Hkv, D, int(causal), 0 if window is None else int(window),
+                     scale, stream)
+    _build.check(err, f"flash_attention ({path})")
     flash_attention.launches += 1
+    flash_attention.route_launches[path] += 1
     return out
 
 
-flash_attention.launches = 0  # kernel launches since the last ops.reset_kernel_launches()
+# kernel launches since the last ops.reset_kernel_launches(), in all and by route
+flash_attention.launches = 0
+flash_attention.route_launches = dict.fromkeys(ROUTES, 0)

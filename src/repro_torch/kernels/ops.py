@@ -158,6 +158,16 @@ def kernel_launches() -> dict:
     return {name: spec.kernel.launches for name, spec in OP_TABLE.items()}
 
 
+def route_launches() -> dict:
+    """{op_name: {route: launches}} since the last reset, for the kernels
+    that pick between routes (``bank_matmul``: wgmma / simt;
+    ``flash_attention``: mma / simt)."""
+    return {name: dict(spec.kernel.route_launches) for name, spec in OP_TABLE.items()
+            if hasattr(spec.kernel, "route_launches")}
+
+
 def reset_kernel_launches() -> None:
     for spec in OP_TABLE.values():
         spec.kernel.launches = 0
+        if hasattr(spec.kernel, "route_launches"):
+            spec.kernel.route_launches = dict.fromkeys(spec.kernel.route_launches, 0)

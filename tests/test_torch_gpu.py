@@ -12,6 +12,8 @@ neighbouring value).
 import pytest
 import torch
 
+from repro_torch.kernels import bank_matmul as kbank
+from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 
@@ -61,6 +63,73 @@ def test_bank_kernel_matches_plain_version(cuda_device, dtype):
         out = ops.bank_matmul(x, w, b)
         assert ops.kernel_launches()["bank_matmul"] == before + 1
         torch.testing.assert_close(out, tref.bank_matmul_ref(x, w, b), **TOL[dtype])
+
+
+BANK_WGMMA_CASES = {  # N, M, K, F, broadcast x, bias
+    "aligned-bias": (3, 256, 256, 512, False, True),
+    "m8": (3, 8, 2048, 1024, False, False),
+    "broadcast": (2, 300, 128, 264, True, True),
+    "ragged": (3, 130, 72, 264, False, True),  # M, K, F not multiples of the tile
+    "n1-m1": (1, 1, 8, 8, False, False),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(BANK_WGMMA_CASES))
+def test_bank_wgmma_route_matches_plain_version(cuda_device, case):
+    N, M, K, F, broadcast, bias = BANK_WGMMA_CASES[case]
+    rnd = _rnd(cuda_device, "bfloat16", 11)
+    x = rnd(M, K) if broadcast else rnd(N, M, K)
+    w, b = rnd(N, K, F), (rnd(N, F) if bias else None)
+    assert kbank.route(x, w) == "wgmma"
+    before = ops.route_launches()["bank_matmul"]
+    out = ops.bank_matmul(x, w, b)
+    assert ops.route_launches()["bank_matmul"] == {"wgmma": before["wgmma"] + 1,
+                                                   "simt": before["simt"]}
+    torch.testing.assert_close(out, tref.bank_matmul_ref(x, w, b), **TOL["bfloat16"])
+
+
+@pytest.mark.gpu
+def test_bank_wgmma_route_is_row_stable_across_m_and_n(cuda_device):
+    """A row's sum order depends on K alone: the same bits at M = 1, 8 and
+    300, for N = 1 and N = 3, and for banked or broadcast x."""
+    rnd = _rnd(cuda_device, "bfloat16", 12)
+    x, w = rnd(3, 300, 512), rnd(3, 512, 768)
+    out = ops.bank_matmul(x, w)
+    assert torch.equal(ops.bank_matmul(x[:, :1].contiguous(), w), out[:, :1])
+    assert torch.equal(ops.bank_matmul(x[:, :8].contiguous(), w), out[:, :8])
+    assert torch.equal(ops.bank_matmul(x[:1].contiguous(), w[:1].contiguous()), out[:1])
+    assert torch.equal(ops.bank_matmul(x[2], w)[2], out[2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_flash_mma_route_matches_plain_version(cuda_device, D):
+    """Causal and windowed, ragged S, GQA, S = 1, bidirectional, and a
+    window of 1 (each row sees only itself)."""
+    rnd = _rnd(cuda_device, "bfloat16", 13)
+    for B, S, Hq, Hkv, causal, window in [(2, 200, 8, 2, True, None), (2, 130, 4, 4, True, 32),
+                                          (1, 1, 4, 1, True, None), (1, 300, 8, 1, True, 64),
+                                          (2, 77, 4, 2, False, None), (2, 64, 2, 2, True, 1)]:
+        q, k, v = rnd(B, S, Hq, D), rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
+        assert kflash.route(q) == "mma"
+        before = ops.route_launches()["flash_attention"]
+        out = ops.flash_attention(q, k, v, causal=causal, window=window)
+        assert ops.route_launches()["flash_attention"] == {"mma": before["mma"] + 1,
+                                                           "simt": before["simt"]}
+        torch.testing.assert_close(out.float(), tref.flash_attention_ref(
+            q, k, v, causal=causal, window=window).float(), **TOL["bfloat16"])
+
+
+@pytest.mark.gpu
+def test_float32_takes_the_simt_routes(cuda_device):
+    rnd = _rnd(cuda_device, "float32", 14)
+    ops.reset_kernel_launches()
+    ops.bank_matmul(rnd(8, 16), rnd(2, 16, 64), rnd(2, 64))
+    q = rnd(1, 70, 2, 64)
+    ops.flash_attention(q, q, q)
+    assert ops.route_launches() == {"bank_matmul": {"wgmma": 0, "simt": 1},
+                                    "flash_attention": {"mma": 0, "simt": 1}}
 
 
 @pytest.mark.gpu

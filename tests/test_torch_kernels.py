@@ -128,6 +128,52 @@ def test_bank_ref_is_bitwise_per_member():
         assert torch.equal(out[i], torch.matmul(x[i].float(), w[i].float()))
 
 
+BANK_ROUTES = [  # case, x shape, w shape, dtype, route the wrapper must take
+    ("stablelm-head", (3, 1024, 2048), (3, 2048, 100352), "bfloat16", "wgmma"),
+    ("falcon-mamba-head", (3, 1024, 4096), (3, 4096, 65024), "bfloat16", "wgmma"),
+    ("stablelm-decode", (3, 8, 2048), (3, 2048, 100352), "bfloat16", "wgmma"),
+    ("falcon-mamba-decode", (3, 8, 4096), (3, 4096, 65024), "bfloat16", "wgmma"),
+    ("broadcast-x", (1024, 2048), (3, 2048, 256), "bfloat16", "wgmma"),
+    ("m1-k8-f8", (1, 1, 8), (1, 8, 8), "bfloat16", "wgmma"),
+    ("stablelm-head-f32", (3, 1024, 2048), (3, 2048, 100352), "float32", "simt"),
+    ("small_cnn-fc1", (8, 16), (2, 16, 64), "float32", "simt"),
+    ("small_cnn-fc2", (2, 8, 64), (2, 64, 4), "float32", "simt"),
+    ("f4-bf16", (2, 8, 64), (2, 64, 4), "bfloat16", "simt"),
+    ("f33", (3, 100, 72), (3, 72, 33), "bfloat16", "simt"),
+    ("k70", (3, 100, 70), (3, 70, 40), "bfloat16", "simt"),
+]
+
+
+@pytest.mark.parametrize("device", ["meta", "cpu"])
+@pytest.mark.parametrize("case,xs,ws,dtype,want", BANK_ROUTES, ids=[c[0] for c in BANK_ROUTES])
+def test_bank_route_is_a_function_of_dtype_and_shape(device, case, xs, ws, dtype, want):
+    """bf16 with 16-byte rows (K and F multiples of 8) takes the tensor-core
+    kernel, float32 and other shapes the CUDA-core one.  Full-size shapes
+    only on meta tensors (no storage)."""
+    if device == "cpu":  # the same residues mod 8, at most a few hundred wide
+        xs, ws = (tuple(n if n <= 256 else 256 + n % 8 for n in s) for s in (xs, ws))
+    dt = getattr(torch, dtype)
+    x, w = torch.empty(xs, dtype=dt, device=device), torch.empty(ws, dtype=dt, device=device)
+    assert kbank.route(x, w) == want
+
+
+def test_bank_route_takes_simt_for_a_view_starting_mid_row():
+    base = torch.zeros(3 * 16 * 64 + 1, dtype=torch.bfloat16)
+    x = base[1:].view(3, 16, 64)  # contiguous, but 2 bytes past a 16-byte boundary
+    w = torch.zeros((3, 64, 64), dtype=torch.bfloat16)
+    assert x.is_contiguous() and kbank.route(x, w) == "simt"
+    assert kbank.route(x.clone(), w) == "wgmma"
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("dtype,want", [("bfloat16", "mma"), ("float32", "simt")])
+@pytest.mark.parametrize("Hq", [1, 16])
+def test_flash_route_is_a_function_of_dtype_and_head_dim(D, dtype, want, Hq):
+    dt = getattr(torch, dtype)
+    q = torch.empty((8, 128, Hq, D), dtype=dt, device="meta")
+    assert kflash.route(q) == want
+
+
 # ---------------------------------------------------------------------------
 # decode attention
 # ---------------------------------------------------------------------------
@@ -273,6 +319,17 @@ def test_ops_dispatch_cpu_tensors_to_plain_versions_and_count():
     assert ops.dispatch_counts() == {}
 
 
+def test_route_launch_counters_reset_and_cpu_dispatch_leaves_them():
+    kbank.bank_matmul.route_launches["wgmma"] += 2
+    kflash.flash_attention.route_launches["simt"] += 1
+    ops.reset_kernel_launches()
+    assert ops.route_launches() == {"bank_matmul": {"wgmma": 0, "simt": 0},
+                                    "flash_attention": {"mma": 0, "simt": 0}}
+    _, (x, w) = _inputs(1, [(3, 4, 8), (3, 8, 8)], "bfloat16")
+    ops.bank_matmul(x, w)
+    assert ops.route_launches()["bank_matmul"] == {"wgmma": 0, "simt": 0}
+
+
 def test_kernel_wrappers_take_cuda_tensors_only():
     _, (q, x, w) = _inputs(0, [(1, 16, 2, 64), (4, 8), (2, 8, 5)], "float32")
     with pytest.raises(ValueError, match="CUDA tensors only"):
@@ -306,6 +363,27 @@ def test_op_table_names_each_kernel_its_source_and_the_tpu_kernel():
         assert 'extern "C"' in (root / spec.source).read_text()
         path, line = spec.replaces.split(":")
         assert "pallas_call" in (root / path).read_text().splitlines()[int(line) - 1]
+
+
+def test_sass_mma_counts_reads_each_kernels_tensor_core_instructions(monkeypatch):
+    """The build line's HGMMA / HMMA counts, parsed from a cuobjdump -sass
+    listing (predicated instructions included, names left mangled when no
+    cu++filt is found)."""
+    listing = "\n".join([
+        "\tcode for sm_90a",
+        "\t\tFunction : _Z4bankv",
+        "        /*0000*/                   MOV R1, c[0x0][0x28] ;   /* 0x00000a0000017a02 */",
+        "        /*0010*/              @P0  HGMMA.64x256x16.F32.BF16 R24, gdesc[UR4], RZ ;  /* 0x0 */",
+        "        /*0020*/                   HGMMA.64x256x16.F32.BF16 R24, gdesc[UR8], R24 ; /* 0x0 */",
+        "\t\tFunction : _Z5flashv",
+        "        /*0000*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;  /* 0x0 */",
+        "        /*0010*/                   LDSM.16.M88.4 R8, [R2] ;  /* 0x0 */",
+    ])
+    monkeypatch.setattr(_build, "find_tool", lambda name: "cuobjdump" if name == "cuobjdump" else None)
+    monkeypatch.setattr(_build.subprocess, "run",
+                        lambda cmd, **kw: type("Done", (), {"stdout": listing})())
+    assert _build.sass_mma_counts(Path("libkernels.so")) == {
+        "_Z4bankv": {"HGMMA": 2, "HMMA": 0}, "_Z5flashv": {"HGMMA": 0, "HMMA": 1}}
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
