@@ -14,15 +14,20 @@ device memory still allocated and closes with its seconds):
 3. kernels: each Hopper kernel against its plain PyTorch version on the
    card at the main paths' shapes (the bank also at the falcon-mamba and
    decode heads) and a few edge shapes, with the route taken, kernel,
-   plain, library and bound times; the wgmma bank also bitwise against
-   its own rows at M = 1 and N = 1;
+   plain, library and bound times (bytes, operations or, for the scan,
+   exponentials at the special-function units' rate); the wgmma bank
+   also bitwise against its own rows at M = 1 and N = 1; every
+   decode_attention row bitwise alone (B = 1) and in its batch, with
+   lengths straddling its key chunks; a mamba_scan serve scan bitwise
+   against the same steps chained at S = 1 (``mamba_chain``);
 4. small_cnn merge-and-serve: two members, trunk merged, through
    ``MergeAwareEngine``; completions against direct forwards;
 5. for each full-width group below, three fine-tune variants (shared base,
    trunk perturbed by 0.005, head by 1.0), every trunk group merged, 8
    requests of 128 tokens per member served through ``MergeAwareEngine``
    (``<prefix>_merge`` / ``_serve``): kernel launch counts (every bank and
-   flash launch on the tensor-core route), residency, and
+   flash launch on the tensor-core route, every scan on mamba_scan's
+   "scan" route), residency, and
    every served row against the member's direct forward on the same
    padded batch; then one more micro-batch under ``torch.profiler``
    (``_profile``: device time by kernel, device idle share):
@@ -35,7 +40,8 @@ device memory still allocated and closes with its seconds):
    32 new tokens each, through ``MergeAwareEngine.serve_decode`` (a pool
    of 128 pages of 16, 8 slots, chunked prefill; KV pages for stablelm,
    one recurrent-state slot per request for falcon-mamba); dispatch
-   discipline, kernel launch counts over the streaming run, pool
+   discipline, kernel launch counts over the streaming run (every scan on
+   mamba_scan's "step" route), pool
    accounting, and one request per member replayed teacher-forced through
    the unpaged decode; then pure decode steps with all 8 slots live, timed
    and under ``torch.profiler`` (``_decode_profile``).
@@ -59,6 +65,11 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor core; fp32 non-tensor
+# exponentials a clock per SM on the special-function units (the CUDA C++
+# Programming Guide's arithmetic throughput table, compute capability 9.0);
+# times SMs and the SM clock, set in main()
+EXP_PER_CLOCK_PER_SM = 16
+EXP_PER_S = 0.0
 # the JAX package's own kernel-test tolerances (tests/test_kernels.py TOL):
 # float32 results differ only in summation order, bf16 ones also in where
 # the final rounding lands
@@ -113,10 +124,27 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 2, per_graph: int = 20) -> float
     return ms
 
 
-def bound(nbytes: float, ops: float, dtype: str) -> tuple:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[dtype] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+def bound(nbytes: float, ops: float, dtype: str, exps: float = 0.0) -> tuple:
+    """The least time (ms) the card could take, and what sets it: bytes at
+    the memory rate, operations at the peak rate for ``dtype``, or
+    exponentials at the special-function units' rate."""
+    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "operations": ops / PEAK_OPS[dtype] * 1e3}
+    if exps:
+        assert EXP_PER_S > 0, "main() reads the SM clock first"
+        times["exponentials"] = exps / EXP_PER_S * 1e3
+    by = max(times, key=times.get)
+    return times[by], by
+
+
+def exp_rate(torch) -> tuple:
+    """(exponentials a second, SMs, max SM clock MHz): the SM clock from
+    ``nvidia-smi --query-gpu=clocks.max.sm``, the SM count from the device."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return EXP_PER_CLOCK_PER_SM * sms * mhz * 1e6, sms, mhz
 
 
 def kernel_name(signature: str) -> str:
@@ -227,9 +255,11 @@ def check_flash(torch, case: str, B, S, Hq, Hkv, D, dtype, window, reps, gen):
 
 def check_decode(torch, case: str, B, Smax, Hq, Hkv, D, dtype, lengths, reps, gen):
     """decode_attention against its plain version; run twice (the two
-    results must be bitwise equal) and rows of length 0 must be exact
-    zeros.  The library call is SDPA with a boolean length mask on the rows
-    of length >= 1 (SDPA gives NaN on a fully masked row)."""
+    results must be bitwise equal), rows of length 0 must be exact zeros,
+    and each row computed alone (B = 1, Smax = its length rounded up to 16)
+    must have the bits it has in the batch.  The library call is SDPA with a
+    boolean length mask on the rows of length >= 1 (SDPA gives NaN on a
+    fully masked row)."""
     import torch.nn.functional as Fn
 
     from repro_torch.kernels import decode_attention as kmod
@@ -247,6 +277,11 @@ def check_decode(torch, case: str, B, Smax, Hq, Hkv, D, dtype, lengths, reps, ge
     zero_rows = (lens == 0).nonzero().flatten().tolist()
     for b in zero_rows:
         assert torch.equal(out[b], torch.zeros_like(out[b])), f"{case}: row {b} not zero"
+    for b, n in enumerate(lengths):
+        s1 = -(-min(max(n, 0), Smax) // 16) * 16
+        alone = kmod.decode_attention(q[b:b + 1], k[b:b + 1, :s1].contiguous(),
+                                      v[b:b + 1, :s1].contiguous(), lens[b:b + 1])
+        assert torch.equal(alone[0], out[b]), f"decode_attention {case}: row {b} alone differs"
     plain = decode_attention_ref(q, k, v, lens)
     err = (out.float() - plain.float()).abs().max().item()
     torch.testing.assert_close(out.float(), plain.float(), **TOL[dtype])
@@ -265,7 +300,9 @@ def check_decode(torch, case: str, B, Smax, Hq, Hkv, D, dtype, lengths, reps, ge
     row = dict(kernel="decode_attention", case=case,
                shape=dict(B=B, Smax=Smax, Hq=Hq, Hkv=Hkv, D=D), dtype=dtype,
                lengths=dict(min=min(lengths), max=max(lengths), sum=keys),
-               zero_rows=len(zero_rows), repeat_bitwise=True, max_abs_err=err,
+               chunk=kmod.CHUNK, blocks_working=sum(map(len, kmod.chunk_plan(lens, Smax))) * Hkv,
+               zero_rows=len(zero_rows), repeat_bitwise=True, row_alone_bitwise=True,
+               max_abs_err=err,
                tol=TOL[dtype], ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                bound_ms=bound_ms, bound_by=bound_by)
     emit("kernel_check", **row)
@@ -310,6 +347,7 @@ def check_mamba(torch, case: str, B, S, di, n, dtype, zero_h0, reps, gen):
     args = (torch.nn.functional.softplus(rnd(B, S, di)).to(dt), rnd(B, S, di).to(dt),
             rnd(B, S, n).to(dt), rnd(B, S, n).to(dt), -torch.exp(0.5 * rnd(di, n)),
             torch.zeros((B, di, n), device="cuda") if zero_h0 else rnd(B, di, n))
+    route = kmod.route(args[0])
     y, h = kmod.mamba_scan(*args)
     torch.cuda.synchronize()
     yr, hr = mamba_scan_ref(*args)
@@ -318,13 +356,40 @@ def check_mamba(torch, case: str, B, S, di, n, dtype, zero_h0, reps, gen):
     torch.testing.assert_close(h, hr, **TOL["float32"])
     ms = cuda_ms(torch, lambda: kmod.mamba_scan(*args), reps)
     plain_ms = cuda_ms(torch, lambda: mamba_scan_ref(*args), max(2, reps // 10))
-    # per (row, step, channel, state): dt*A, exp, *h, dtx*B, +, *C, + -- 7 operations
-    bound_ms, bound_by = bound(nbytes(*args, y, h), 7.0 * B * S * di * n, "float32")
-    row = dict(kernel="mamba_scan", case=case, shape=dict(B=B, S=S, di=di, n=n), dtype=dtype,
+    # per (row, step, channel, state): dt*A, *h, dtx*B, +, *C, + -- 6 float32
+    # operations -- and one exponential on the special-function units
+    work = B * S * di * n
+    bound_ms, bound_by = bound(nbytes(*args, y, h), 6.0 * work, "float32", exps=work)
+    row = dict(kernel="mamba_scan", case=case, route=route, shape=dict(B=B, S=S, di=di, n=n),
+               dtype=dtype,
                zero_h0=zero_h0, max_abs_err=err, tol=TOL["float32"], ms=ms, plain_ms=plain_ms,
                library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
     emit("kernel_check", **row)
     return row
+
+
+def check_mamba_chain(torch, B, S, di, n, dtype, gen) -> None:
+    """One serve scan of S steps ("scan" route) against S chained S = 1
+    launches ("step" route) that carry h_last as the next h0: y and h_last
+    bitwise equal (a serve scan and decode steps agree exactly)."""
+    from repro_torch.kernels import mamba_scan as kmod
+
+    dt = getattr(torch, dtype)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
+    dts, dtx = torch.nn.functional.softplus(rnd(B, S, di)).to(dt), rnd(B, S, di).to(dt)
+    Bm, Cm, A, h0 = rnd(B, S, n).to(dt), rnd(B, S, n).to(dt), -torch.exp(0.5 * rnd(di, n)), \
+        rnd(B, di, n)
+    y, h = kmod.mamba_scan(dts, dtx, Bm, Cm, A, h0)
+    hc, ys = h0, []
+    for t in range(S):
+        step = [x[:, t:t + 1].contiguous() for x in (dts, dtx, Bm, Cm)]
+        yt, hc = kmod.mamba_scan(*step, A, hc)
+        ys.append(yt)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(ys, dim=1), y), "mamba_scan: chained steps' y differ"
+    assert torch.equal(hc, h), "mamba_scan: chained steps' h_last differs"
+    emit("mamba_chain", shape=dict(B=B, S=S, di=di, n=n), dtype=dtype, launches=S + 1,
+         y_bitwise=True, h_last_bitwise=True)
 
 
 def check_rg_lru(torch, case: str, B, S, d, dtype, reps, gen):
@@ -353,6 +418,8 @@ def check_rg_lru(torch, case: str, B, S, d, dtype, reps, gen):
 
 
 def kernel_checks(torch) -> dict:
+    from repro_torch.kernels import decode_attention as kdecode
+
     gen = torch.Generator(device="cuda").manual_seed(0)
     # what cuda_ms gives for a kernel that does almost nothing (one element
     # added in place): times near it say little about a kernel's work
@@ -394,6 +461,10 @@ def kernel_checks(torch) -> dict:
                  [4096, 1, 3000, 2048, 4095, 512, 1234, 3999], 20, gen)
     check_decode(torch, "gqa-len0", 4, 1000, 32, 8, 128, "bfloat16", [1000, 0, 513, 64],
                  50, gen)
+    # lengths on both sides of the kernel's chunk boundaries
+    T = kdecode.CHUNK
+    check_decode(torch, "split-edges", 8, 3 * T, 32, 32, 64, "bfloat16",
+                 [0, 1, T - 1, T, T + 1, 2 * T - 1, 2 * T, 2 * T + 1], 50, gen)
     # falcon-mamba-7b: serve (8 x 128 tokens, di 8192, n 16, f32 coefficients)
     # and decode (S = 1 with the state from the pool)
     main["mamba_scan"] = check_mamba(torch, "falcon-serve", 8, 128, 8192, 16, "float32",
@@ -401,6 +472,8 @@ def kernel_checks(torch) -> dict:
     check_mamba(torch, "falcon-serve", 8, 128, 8192, 16, "bfloat16", True, 20, gen)
     check_mamba(torch, "ragged", 3, 13, 1000, 16, "float32", False, 50, gen)
     check_mamba(torch, "falcon-decode", 8, 1, 8192, 16, "float32", False, 50, gen)
+    check_mamba(torch, "n8", 8, 128, 8192, 8, "float32", False, 20, gen)
+    check_mamba_chain(torch, 8, 16, 8192, 16, "float32", gen)
     # recurrentgemma-9b: the RG-LRU at 8 x 128 tokens, d_rnn 4096
     main["rg_lru_scan"] = check_rg_lru(torch, "rgemma-serve", 8, 128, 4096, "float32", 50, gen)
     check_rg_lru(torch, "rgemma-serve", 8, 128, 4096, "bfloat16", 50, gen)
@@ -473,6 +546,14 @@ def tensor_core_routes_only(routes: dict) -> None:
     """Every bank_matmul and flash_attention launch of an LM phase (bf16
     throughout) took the tensor-core route."""
     assert routes["bank_matmul"]["simt"] == 0 and routes["flash_attention"]["simt"] == 0, routes
+
+
+def scan_route_only(routes: dict, route: str) -> None:
+    """Every mamba_scan launch of a phase took ``route``: "scan" in a serve
+    (whole 128-token requests), "step" in a streaming decode (every decode
+    step and every prefill chunk runs the trunk one token at a time)."""
+    other = {"scan": "step", "step": "scan"}[route]
+    assert routes["mamba_scan"][other] == 0, routes
 
 
 def small_cnn_phase(torch) -> None:
@@ -605,6 +686,7 @@ def lm_serve_phase(torch, prefix: str, family: str, cfg, capacity_bytes: int,
     assert stats["completed"] == len(reqs), stats
     assert all(launches[k] > 0 for k in expect), launches
     tensor_core_routes_only(routes)
+    scan_route_only(routes, "scan")
     if cfg.tie_embeddings:
         assert launches["bank_matmul"] == 0, launches
         assert stats["suffix_dispatches"] == stats["suffix_runs"] == sum(members), stats
@@ -747,6 +829,7 @@ def decode_phase(torch, prefix: str, eng, cfg, expect: tuple) -> tuple:
     assert stats["singleton_dispatches"] == 0, stats
     assert all(launches[name] > 0 for name in expect), launches
     tensor_core_routes_only(routes)
+    scan_route_only(routes, "step")
     # a KV pool is read through two gathers (k and v) per attention
     assert launches["page_gather"] == 2 * launches["decode_attention"], launches
     replay = replay_check(torch, dec, TOL["bfloat16"])
@@ -823,10 +906,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
+    global EXP_PER_S
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
+    EXP_PER_S, sms, sm_mhz = exp_rate(torch)
     emit("device", name=kind, count=torch.cuda.device_count(), torch=torch.__version__,
-         cuda=torch.version.cuda, nvidia_smi=smi)
+         cuda=torch.version.cuda, nvidia_smi=smi, sms=sms, sm_clock_max_mhz=sm_mhz,
+         exponentials_per_s=EXP_PER_S)
     print(smi, flush=True)
 
     t0 = time.perf_counter()

@@ -116,11 +116,11 @@ def load_library() -> ctypes.CDLL:
             getattr(lib, name).restype = ci
         lib.page_gather_launch.argtypes = [vp, vp, vp, cl, cl, cl, vp]
         lib.page_gather_launch.restype = ci
-        lib.decode_attention_launch.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci,
-                                                ci, ci, cf, ci, vp]
+        lib.decode_attention_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci,
+                                                ci, ci, ci, ci, cf, ci, vp]
         lib.decode_attention_launch.restype = ci
         lib.mamba_scan_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,
-                                          ci, vp]
+                                          ci, ci, vp]
         lib.mamba_scan_launch.restype = ci
         lib.rg_lru_launch.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
         lib.rg_lru_launch.restype = ci

@@ -161,7 +161,7 @@ def kernel_launches() -> dict:
 def route_launches() -> dict:
     """{op_name: {route: launches}} since the last reset, for the kernels
     that pick between routes (``bank_matmul``: wgmma / simt;
-    ``flash_attention``: mma / simt)."""
+    ``flash_attention``: mma / simt; ``mamba_scan``: step / scan)."""
     return {name: dict(spec.kernel.route_launches) for name, spec in OP_TABLE.items()
             if hasattr(spec.kernel, "route_launches")}
 

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import bank_matmul as kbank
+from repro_torch.kernels import decode_attention as kdecode
 from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
@@ -129,7 +130,8 @@ def test_float32_takes_the_simt_routes(cuda_device):
     q = rnd(1, 70, 2, 64)
     ops.flash_attention(q, q, q)
     assert ops.route_launches() == {"bank_matmul": {"wgmma": 0, "simt": 1},
-                                    "flash_attention": {"mma": 0, "simt": 1}}
+                                    "flash_attention": {"mma": 0, "simt": 1},
+                                    "mamba_scan": {"step": 0, "scan": 0}}
 
 
 @pytest.mark.gpu
@@ -455,3 +457,143 @@ def test_merged_tied_hybrid_group_serves_through_the_kernels(cuda_device):
     assert launches["rg_lru_scan"] > 0 and launches["flash_attention"] > 0
     assert launches["bank_matmul"] == 0
     assert stats["suffix_dispatches"] == stats["suffix_runs"] > stats["microbatches"]
+
+
+# ---------------------------------------------------------------------------
+# decode_attention: keys split across blocks, merged in chunk order
+# ---------------------------------------------------------------------------
+
+
+def _split_edge_lengths(Smax):
+    """Lengths around the kernel's chunk size T: 0, 1, T - 1, T, T + 1, two
+    chunks and a bit, and Smax."""
+    T = kdecode.CHUNK
+    return (0, 1, T - 1, T, T + 1, 2 * T + 5, Smax)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G", [1, 2, 4, 8, 16])
+def test_decode_kernel_over_head_dims_groups_and_split_edges(cuda_device, dtype, D, G):
+    Hkv, Smax = 2, 3 * kdecode.CHUNK + 7
+    lengths = _split_edge_lengths(Smax)
+    rnd = _rnd(cuda_device, dtype, 20 + G)
+    B = len(lengths)
+    q, k, v = rnd(B, G * Hkv, D), rnd(B, Smax, Hkv, D), rnd(B, Smax, Hkv, D)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
+    before = ops.kernel_launches()["decode_attention"]
+    out = ops.decode_attention(q, k, v, lens)
+    again = ops.decode_attention(q, k, v, lens)
+    assert ops.kernel_launches()["decode_attention"] == before + 2
+    assert torch.equal(out, again)
+    assert torch.equal(out[0], torch.zeros_like(out[0]))  # length 0
+    torch.testing.assert_close(out.float(), tref.decode_attention_ref(
+        q, k, v, lens).float(), **TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G", [1, 4, 16])
+def test_decode_row_alone_is_bitwise_the_row_in_its_batch(cuda_device, dtype, G):
+    """A row's output depends on its own q, keys and length only: computed
+    alone (B = 1, Smax = its length rounded up to 16) it has the bits it
+    has inside the batch."""
+    Hkv, D, Smax = 2, 128 if G == 4 else 64, 3 * kdecode.CHUNK + 7
+    lengths = _split_edge_lengths(Smax)
+    rnd = _rnd(cuda_device, dtype, 30 + G)
+    B = len(lengths)
+    q, k, v = rnd(B, G * Hkv, D), rnd(B, Smax, Hkv, D), rnd(B, Smax, Hkv, D)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
+    out = ops.decode_attention(q, k, v, lens)
+    for b, n in enumerate(lengths):
+        S1 = -(-n // 16) * 16
+        alone = ops.decode_attention(q[b:b + 1].contiguous(), k[b:b + 1, :S1].contiguous(),
+                                     v[b:b + 1, :S1].contiguous(), lens[b:b + 1].contiguous())
+        assert torch.equal(alone[0], out[b]), f"row {b} (length {n})"
+
+
+@pytest.mark.gpu
+def test_decode_kernel_repeats_bitwise_inside_a_cuda_graph(cuda_device):
+    """Replays of a captured graph give the eager bits, and every launch
+    leaves the chunk counters at zero (rows of length 0 included)."""
+    rnd = _rnd(cuda_device, "bfloat16", 40)
+    B, Smax, Hq, Hkv, D = 4, 1000, 32, 8, 128
+    q, k, v = rnd(B, Hq, D), rnd(B, Smax, Hkv, D), rnd(B, Smax, Hkv, D)
+    lens = torch.tensor([1000, 0, 513, 64], dtype=torch.int32, device=cuda_device)
+    want = ops.decode_attention(q, k, v, lens)
+    graph, outs = torch.cuda.CUDAGraph(), []
+    with torch.cuda.graph(graph):
+        for _ in range(5):
+            outs.append(ops.decode_attention(q, k, v, lens))
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, want) for o in outs)
+    assert int(kdecode._COUNTERS[q.device][-1].abs().sum()) == 0
+
+
+# ---------------------------------------------------------------------------
+# mamba_scan: one kernel for every S
+# ---------------------------------------------------------------------------
+
+
+def _mamba_args(device, dtype, seed, B, S, di, n, zero_h0=False):
+    rnd = _rnd(device, dtype, seed)
+    f32 = _rnd(device, "float32", seed + 1)
+    dt = torch.nn.functional.softplus(rnd(B, S, di).float()).to(getattr(torch, dtype))
+    return (dt, rnd(B, S, di), rnd(B, S, n), rnd(B, S, n), -torch.exp(0.5 * f32(di, n)),
+            torch.zeros((B, di, n), device=device) if zero_h0 else f32(B, di, n))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [8, 16])
+@pytest.mark.parametrize("S", [1, 2, 13, 128, 300])
+def test_mamba_scan_kernel_over_state_dims_and_lengths(cuda_device, dtype, n, S):
+    """Ragged di (not a multiple of a block's channels), held at the float32
+    tolerance for either input dtype; repeat launches give the same bits."""
+    args = _mamba_args(cuda_device, dtype, 50 + S, 3, S, 1000, n)
+    before = ops.route_launches()["mamba_scan"]
+    y, h = ops.mamba_scan(*args)
+    y2, h2 = ops.mamba_scan(*args)
+    path = "step" if S == 1 else "scan"
+    assert ops.route_launches()["mamba_scan"][path] == before[path] + 2
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    yr, hr = tref.mamba_scan_ref(*args)
+    torch.testing.assert_close(y, yr, **TOL["float32"])
+    torch.testing.assert_close(h, hr, **TOL["float32"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [8, 16])
+def test_mamba_serve_scan_is_bitwise_its_chained_decode_steps(cuda_device, dtype, n):
+    """A scan of S steps ("scan" route) and S launches at S = 1 ("step"
+    route) that carry h_last as the next h0 give the same y and h_last,
+    bit for bit: a serve scan and decode steps agree exactly."""
+    S = 13
+    dt, dtx, Bm, Cm, A, h0 = _mamba_args(cuda_device, dtype, 60 + n, 4, S, 520, n)
+    y, h = ops.mamba_scan(dt, dtx, Bm, Cm, A, h0)
+    hc, ys = h0, []
+    for t in range(S):
+        sl = slice(t, t + 1)
+        yt, hc = ops.mamba_scan(dt[:, sl].contiguous(), dtx[:, sl].contiguous(),
+                                Bm[:, sl].contiguous(), Cm[:, sl].contiguous(), A, hc)
+        ys.append(yt)
+    assert torch.equal(torch.cat(ys, dim=1), y)
+    assert torch.equal(hc, h)
+
+
+@pytest.mark.gpu
+def test_mamba_scan_repeats_bitwise_inside_a_cuda_graph(cuda_device):
+    args = _mamba_args(cuda_device, "float32", 70, 8, 1, 8192, 16)
+    want = ops.mamba_scan(*args)
+    graph, outs = torch.cuda.CUDAGraph(), []
+    with torch.cuda.graph(graph):
+        for _ in range(5):
+            outs.append(ops.mamba_scan(*args))
+    graph.replay()
+    torch.cuda.synchronize()
+    for y, h in outs:
+        assert torch.equal(y, want[0]) and torch.equal(h, want[1])

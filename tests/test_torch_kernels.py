@@ -202,6 +202,59 @@ def test_decode_ref_matches_jax_ref_and_pallas(dtype, B, Smax, Hq, Hkv, D, lengt
     np.testing.assert_allclose(_np(got), np.asarray(pallas, np.float32), **tol)
 
 
+@pytest.mark.parametrize("length", [0, 1, 127, 128, 129, 255, 256, 257, 1000, 4096])
+def test_decode_row_chunks_cut_key_positions(length):
+    """The kernel's chunks of a row: consecutive, CHUNK keys each but the
+    last, starting at multiples of CHUNK and covering exactly the row."""
+    T = kdecode.CHUNK
+    chunks = kdecode.row_chunks(length)
+    assert [s for s, _ in chunks] == list(range(0, length, T))
+    assert all(0 < e - s <= T for s, e in chunks)
+    assert all(e == s2 for (_, e), (s2, _) in zip(chunks, chunks[1:]))
+    assert (chunks[-1][1] if chunks else 0) == length
+
+
+def test_decode_chunk_plan_of_a_row_ignores_batch_smax_and_other_rows():
+    """What a row's blocks take is its own length's cut, whether the row is
+    alone (Smax its length rounded up to 16) or anywhere in a batch with
+    other lengths and a larger Smax; lengths outside [0, Smax] are clamped
+    as the kernel clamps them."""
+    rng = np.random.default_rng(0)
+    for length in [0, 1, 127, 128, 129, 300, 1000]:
+        want = kdecode.row_chunks(length)
+        alone = torch.tensor([length], dtype=torch.int32)
+        assert kdecode.chunk_plan(alone, -(-length // 16) * 16) == [want]
+        for Smax in (length, length + 1, 1000, 4096):
+            if Smax < length:
+                continue
+            others = rng.integers(0, Smax + 1, size=7)
+            for pos in (0, 3, 7):
+                lens = torch.tensor(np.insert(others, pos, length), dtype=torch.int32)
+                plan = kdecode.chunk_plan(lens, Smax)
+                assert plan[pos] == want
+                assert [len(p) for p in plan] == [len(kdecode.row_chunks(int(n)))
+                                                  for n in lens]
+    assert kdecode.chunk_plan(torch.tensor([500, -3], dtype=torch.int32), 300) == \
+        [kdecode.row_chunks(300), []]
+    assert [kdecode.grid_chunks(s) for s in (0, 1, 128, 129, 4096)] == [1, 1, 1, 2, 32]
+
+
+@pytest.mark.parametrize("device", ["meta", "cpu"])
+@pytest.mark.parametrize("B,Smax,Hq,Hkv,D,want", [
+    (8, 128, 32, 32, 64, 0),                       # stablelm decode: one chunk a row
+    (1, 0, 2, 1, 64, 0),                           # an empty cache
+    (8, 129, 32, 32, 64, 8 * 32 * 2 * 1 * 66),     # one key past a chunk
+    (4, 1000, 32, 8, 128, 4 * 8 * 8 * 4 * 130),    # gqa-len0
+    (8, 4096, 32, 32, 64, 8 * 32 * 32 * 1 * 66),   # long-cache
+    (2, 300, 32, 2, 64, 2 * 2 * 3 * 16 * 66),      # 16 query heads a kv head
+])
+def test_decode_workspace_is_sized_by_shapes_alone(device, B, Smax, Hq, Hkv, D, want):
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.empty((B, Hq, D), dtype=dtype, device=device)
+        k = torch.empty((B, Smax, Hkv, D), dtype=dtype, device=device)
+        assert kdecode.workspace_floats(q, k) == want
+
+
 # ---------------------------------------------------------------------------
 # page gather
 # ---------------------------------------------------------------------------
@@ -285,6 +338,16 @@ def test_rg_lru_ref_matches_jax_ref_and_pallas(dtype, B, S, chunk, zero_h0):
     np.testing.assert_allclose(th.numpy(), np.asarray(ph), **TOL["float32"])
 
 
+@pytest.mark.parametrize("device", ["meta", "cpu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,want", [(1, "step"), (2, "scan"), (13, "scan"), (128, "scan")])
+def test_mamba_route_is_a_function_of_the_step_count(device, dtype, S, want):
+    """A decode step (S = 1) takes the lane-spread "step" route, anything
+    longer the "scan" route, for every batch, width and state dim."""
+    for B, di in [(1, 8), (8, 8192), (3, 1000)]:
+        assert kmamba.route(torch.empty((B, S, di), dtype=dtype, device=device)) == want
+
+
 # ---------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------
@@ -322,9 +385,11 @@ def test_ops_dispatch_cpu_tensors_to_plain_versions_and_count():
 def test_route_launch_counters_reset_and_cpu_dispatch_leaves_them():
     kbank.bank_matmul.route_launches["wgmma"] += 2
     kflash.flash_attention.route_launches["simt"] += 1
+    kmamba.mamba_scan.route_launches["step"] += 3
     ops.reset_kernel_launches()
     assert ops.route_launches() == {"bank_matmul": {"wgmma": 0, "simt": 0},
-                                    "flash_attention": {"mma": 0, "simt": 0}}
+                                    "flash_attention": {"mma": 0, "simt": 0},
+                                    "mamba_scan": {"step": 0, "scan": 0}}
     _, (x, w) = _inputs(1, [(3, 4, 8), (3, 8, 8)], "bfloat16")
     ops.bank_matmul(x, w)
     assert ops.route_launches()["bank_matmul"] == {"wgmma": 0, "simt": 0}
