@@ -35,16 +35,23 @@ device memory still allocated and closes with its seconds):
    * falcon-mamba-7b (ssm: ``mamba_scan``, ``bank_matmul`` suffix bank),
    * recurrentgemma-9b (hybrid: ``rg_lru_scan``, ``flash_attention`` at
      head dim 256, a tied head served per member);
-6. streaming decode on the merged stablelm-1.6b and falcon-mamba-7b
-   stores (``<prefix>_decode``): 8 requests of 96 prompt tokens per member,
-   32 new tokens each, through ``MergeAwareEngine.serve_decode`` (a pool
-   of 128 pages of 16, 8 slots, chunked prefill; KV pages for stablelm,
-   one recurrent-state slot per request for falcon-mamba); dispatch
-   discipline, kernel launch counts over the streaming run (every scan on
-   mamba_scan's "step" route), pool
-   accounting, and one request per member replayed teacher-forced through
-   the unpaged decode; then pure decode steps with all 8 slots live, timed
-   and under ``torch.profiler`` (``_decode_profile``).
+6. streaming decode on the merged stablelm-1.6b, falcon-mamba-7b and
+   recurrentgemma-9b stores (``<prefix>_decode``): 8 requests of 96 prompt
+   tokens per member, 32 new tokens each, through
+   ``MergeAwareEngine.serve_decode`` (a pool of 128 pages of 16, 8 slots,
+   chunked prefill, max_len 128, for recurrentgemma 2048 = its window; KV
+   pages for stablelm, one state slot per request for falcon-mamba and for
+   recurrentgemma, whose slot holds the (h, conv) of 26 recurrent layers and
+   a 2048-slot KV ring for each of 12 attention layers); dispatch
+   discipline (a banked head per group step, or for recurrentgemma's tied
+   head one head per member), kernel launch counts over the streaming run
+   (every mamba scan on its "step" route; rg_lru_scan once per recurrent
+   layer per trunk pass, each at S = 1), pool accounting, one request per
+   member replayed teacher-forced through the unpaged decode (with a
+   batch-8 control; ``chip_griffin_rows.py`` finds which operations make
+   recurrentgemma's rows depend on the batch size); then pure
+   decode steps with all 8 slots live, timed and under ``torch.profiler``
+   (``_decode_profile``).
 
 Each family's store, engine and decoder are released before the next
 family's phase.  Then the ``{"kernels": [...]}`` line (each kernel's
@@ -80,6 +87,9 @@ LM_MIDS = ("lm-A", "lm-B", "lm-D")
 # the streaming-decode phase: the pool, slot and length knobs of serve_decode
 DECODE_KW = dict(page_size=16, num_pages=128, max_slots=8, max_len=128, buckets=BUCKETS,
                  chunked_prefill=True)
+# recurrentgemma's decode: the unpaged replay's ring must hold the whole
+# 2048-token window, as the paged ring does
+RGEMMA_DECODE_KW = dict(DECODE_KW, max_len=2048)
 PROMPT_LEN, NEW_TOKENS = 96, 32
 
 
@@ -392,9 +402,12 @@ def check_mamba_chain(torch, B, S, di, n, dtype, gen) -> None:
          y_bitwise=True, h_last_bitwise=True)
 
 
-def check_rg_lru(torch, case: str, B, S, d, dtype, reps, gen):
+def check_rg_lru(torch, case: str, B, S, d, dtype, reps, gen, floor_ms=None):
     """rg_lru_scan against its plain version (y and h_last), at the float32
-    tolerance for either input dtype as for mamba_scan; library null."""
+    tolerance for either input dtype as for mamba_scan; library null.  h0
+    is random, as a decode step carries it in from the pool.  With
+    ``floor_ms`` (the timing floor) the row says whether the bound lies
+    under it: such a time says more about a launch than about the work."""
     from repro_torch.kernels import rg_lru as kmod
     from repro_torch.kernels.ref import rg_lru_ref
 
@@ -411,8 +424,11 @@ def check_rg_lru(torch, case: str, B, S, d, dtype, reps, gen):
     plain_ms = cuda_ms(torch, lambda: rg_lru_ref(*args), max(2, reps // 10))
     bound_ms, bound_by = bound(nbytes(*args, y, h), 2.0 * B * S * d, "float32")
     row = dict(kernel="rg_lru_scan", case=case, shape=dict(B=B, S=S, d=d), dtype=dtype,
+               h0="carried", bytes_moved=nbytes(*args, y, h),
                max_abs_err=err, tol=TOL["float32"], ms=ms, plain_ms=plain_ms,
                library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+    if floor_ms is not None:
+        row.update(timing_floor_ms=floor_ms, bound_under_timing_floor=bound_ms < floor_ms)
     emit("kernel_check", **row)
     return row
 
@@ -424,8 +440,8 @@ def kernel_checks(torch) -> dict:
     # what cuda_ms gives for a kernel that does almost nothing (one element
     # added in place): times near it say little about a kernel's work
     one = torch.zeros(1, device="cuda")
-    emit("timing_floor", op="add_ of one float32 element", ms=cuda_ms(
-        torch, lambda: one.add_(1.0), 200))
+    floor_ms = cuda_ms(torch, lambda: one.add_(1.0), 200)
+    emit("timing_floor", op="add_ of one float32 element", ms=floor_ms)
     main = {}
     # stablelm-1.6b head: 3 members, bucket 8 x 128 tokens, d 2048, vocab 100352
     main["bank_matmul"] = check_bank(torch, "stablelm-head", 3, 1024, 2048, 100352,
@@ -478,7 +494,9 @@ def kernel_checks(torch) -> dict:
     main["rg_lru_scan"] = check_rg_lru(torch, "rgemma-serve", 8, 128, 4096, "float32", 50, gen)
     check_rg_lru(torch, "rgemma-serve", 8, 128, 4096, "bfloat16", 50, gen)
     check_rg_lru(torch, "ragged", 3, 13, 1000, "float32", 50, gen)
-    check_rg_lru(torch, "decode", 8, 1, 4096, "float32", 50, gen)
+    # recurrentgemma-9b decode: one token per row with h carried from the
+    # pool, once per recurrent layer (26) per trunk pass
+    check_rg_lru(torch, "rgemma-decode", 8, 1, 4096, "float32", 50, gen, floor_ms)
     # recurrentgemma-9b local attention: 16 query heads on one kv head of
     # 256, window 2048 (wider than the sequence), then a window that bites
     check_flash(torch, "rgemma-trunk", 8, 128, 16, 1, 256, "bfloat16", 2048, 50, gen)
@@ -802,11 +820,17 @@ def replay_check(torch, dec, tol: dict) -> dict:
                                    argmax_mismatches=ctl_mismatches))
 
 
-def decode_phase(torch, prefix: str, eng, cfg, expect: tuple) -> tuple:
-    """Streaming decode of a merged group (lines ``<prefix>_decode`` and
-    ``<prefix>_decode_profile``); ``expect`` are the kernels that must
-    launch; every bank launch must take the tensor-core route.  Returns the
-    kernel launches of the streaming run and their routes."""
+def decode_phase(torch, prefix: str, eng, cfg, expect: tuple, knobs: dict) -> tuple:
+    """Streaming decode of a merged group with the decoder ``knobs`` (lines
+    ``<prefix>_decode`` and ``<prefix>_decode_profile``); ``expect`` are the
+    kernels that must launch; every bank launch must take the tensor-core
+    route.  An untied group steps with one trunk and one bank dispatch; a
+    tied one with one trunk dispatch and one head per member served (every
+    wave of 8 slots over the interleaved requests holds all three members).
+    A KV pool is read through two gathers per decode attention; a griffin
+    trunk pass launches rg_lru_scan once per recurrent layer, each at S = 1
+    (a trunk pass is one token per row).  Returns the kernel launches of
+    the streaming run and their routes."""
     from repro_torch.kernels import ops
 
     t_phase = start_phase(torch, f"{prefix}_decode")
@@ -815,7 +839,7 @@ def decode_phase(torch, prefix: str, eng, cfg, expect: tuple) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     ops.reset_kernel_launches()
     t0 = time.perf_counter()
-    stats = eng.serve_decode(reqs, horizon_s=900.0, record_logits=True, **DECODE_KW)
+    stats = eng.serve_decode(reqs, horizon_s=900.0, record_logits=True, **knobs)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches, routes = ops.kernel_launches(), ops.route_launches()
@@ -825,34 +849,53 @@ def decode_phase(torch, prefix: str, eng, cfg, expect: tuple) -> tuple:
     assert stats["completed"] == len(reqs), stats
     assert stats["lost_in_flight"] == 0 and stats["unadmitted"] == 0, stats
     assert stats["pool_identity_ok"], stats
-    assert stats["trunk_dispatches"] == stats["bank_dispatches"] == stats["group_steps"] > 0, stats
+    assert stats["trunk_dispatches"] == stats["group_steps"] > 0, stats
     assert stats["singleton_dispatches"] == 0, stats
+    if cfg.tie_embeddings:
+        assert stats["bank_dispatches"] == 0, stats
+        assert stats["head_dispatches"] == len(LM_MIDS) * stats["group_steps"], stats
+    else:
+        assert stats["bank_dispatches"] == stats["group_steps"], stats
+        assert stats["head_dispatches"] == 0, stats
     assert all(launches[name] > 0 for name in expect), launches
     tensor_core_routes_only(routes)
     scan_route_only(routes, "step")
-    # a KV pool is read through two gathers (k and v) per attention
-    assert launches["page_gather"] == 2 * launches["decode_attention"], launches
+    passes = dict(dec.trunk_passes)
+    checks = {}
+    if "page_gather" in expect:
+        assert launches["page_gather"] == 2 * launches["decode_attention"], launches
+    if "rg_lru_scan" in expect:
+        n_rec = cfg.pattern.count("rec") * cfg.n_repeats
+        assert launches["rg_lru_scan"] == n_rec * (passes["warmup"] + passes["run"]), \
+            (launches, passes)
+        checks["rg_lru_scan"] = dict(recurrent_layers=n_rec, launches_in_run=n_rec * passes["run"],
+                                     launches_in_warmup=n_rec * passes["warmup"],
+                                     all_at_s1=True)
     replay = replay_check(torch, dec, TOL["bfloat16"])
+    leaves = [t for kv in (pool.k, pool.v)
+              for t in (kv.values() if isinstance(kv, dict) else (kv,))]
     emit(f"{prefix}_decode", requests=len(reqs), prompt_tokens=PROMPT_LEN,
-         new_tokens=NEW_TOKENS, knobs={k: v for k, v in DECODE_KW.items()}, stats=stats,
-         launches=launches, route_launches=routes, tokens_per_s=stats["tokens_per_s"],
+         new_tokens=NEW_TOKENS, knobs=dict(knobs), stats=stats,
+         launches=launches, route_launches=routes, trunk_passes=passes,
+         launch_checks=checks, tokens_per_s=stats["tokens_per_s"],
          wall_s_per_step=stats["elapsed_s"] / stats["steps"],
-         serve_decode_wall_s_with_warmup=wall_s, pool_bytes=nbytes(pool.k, pool.v),
+         serve_decode_wall_s_with_warmup=wall_s, pool_bytes=nbytes(*leaves),
          pool_high_water_pages=stats["pool_high_water_pages"], peak_memory_bytes=peak,
          replay=replay, seconds=time.perf_counter() - t_phase)
+    del dec, pool, leaves
     t_phase = start_phase(torch, f"{prefix}_decode_profile")
-    profile_decode_steps(torch, eng, cfg, f"{prefix}_decode_profile")
+    profile_decode_steps(torch, eng, cfg, knobs, f"{prefix}_decode_profile")
     emit("phase_end", name=f"{prefix}_decode_profile", seconds=time.perf_counter() - t_phase)
     return launches, routes
 
 
-def profile_decode_steps(torch, eng, cfg, name: str, timed: int = 5) -> None:
+def profile_decode_steps(torch, eng, cfg, knobs: dict, name: str, timed: int = 5) -> None:
     """With all 8 slots past their prompts (every slot emits a token each
     step): ``timed`` pure decode steps on the host clock, then one more
     under ``torch.profiler`` (device time by kernel, device idle share)."""
     from torch.profiler import ProfilerActivity, profile
 
-    first = PROMPT_LEN // (DECODE_KW["page_size"] + 1) + 2  # first step past every prompt
+    first = PROMPT_LEN // (knobs["page_size"] + 1) + 2  # first step past every prompt
     marks, prof = {}, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
     def on_step(dec, step):
@@ -866,11 +909,11 @@ def profile_decode_steps(torch, eng, cfg, name: str, timed: int = 5) -> None:
         elif step == first + timed + 1:
             prof.stop()
 
-    reqs = decode_requests(cfg, 3, 300, first + timed + 4)[:DECODE_KW["max_slots"]]
-    dec_stats = eng.serve_decode(reqs, horizon_s=900.0, on_step=on_step, **DECODE_KW)
+    reqs = decode_requests(cfg, 3, 300, first + timed + 4)[:knobs["max_slots"]]
+    dec_stats = eng.serve_decode(reqs, horizon_s=900.0, on_step=on_step, **knobs)
     (t_a, live_a, emit_a), (t_b, _, _), (t_c, live_c, emit_c) = (
         marks[first], marks[first + timed], marks[first + timed + 1])
-    assert live_a == emit_a == live_c == emit_c == DECODE_KW["max_slots"], marks
+    assert live_a == emit_a == live_c == emit_c == knobs["max_slots"], marks
     step_ms = (t_b - t_a) / timed * 1e3
     wall_ms = (t_c - marks["profiled_from"]) * 1e3
     device = [e for e in prof.key_averages()
@@ -878,9 +921,9 @@ def profile_decode_steps(torch, eng, cfg, name: str, timed: int = 5) -> None:
     rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in device]
     busy_ms = sum(ms for _, ms, _ in rows)
     top = sorted(rows, key=lambda r: -r[1])[:10]
-    emit(name, slots=DECODE_KW["max_slots"], timed_steps=timed,
+    emit(name, slots=knobs["max_slots"], timed_steps=timed,
          wall_ms_per_decode_step=step_ms,
-         tokens_per_s_decode_steps=DECODE_KW["max_slots"] / step_ms * 1e3,
+         tokens_per_s_decode_steps=knobs["max_slots"] / step_ms * 1e3,
          wall_ms_profiled=wall_ms, device_busy_ms=busy_ms,
          device_kernels_per_step=sum(e.count for e in device),
          device_idle_share_profiled=max(0.0, 1 - busy_ms / wall_ms),
@@ -939,28 +982,28 @@ def main() -> int:
     small_cnn_phase(torch)
     emit("phase_end", name="small_cnn_serve", seconds=time.perf_counter() - t0)
     # (line prefix, family, config, engine capacity, kernels the serve must
-    # launch, kernels the streaming decode must launch or None: no decode)
+    # launch, kernels the streaming decode must launch, decoder knobs)
     runs = [
         ("stablelm", "dense", stablelm_1_6b.full_config(), int(16e9),
-         ("bank_matmul", "flash_attention"), ("page_gather", "decode_attention", "bank_matmul")),
+         ("bank_matmul", "flash_attention"), ("page_gather", "decode_attention", "bank_matmul"),
+         DECODE_KW),
         ("falcon_mamba", "ssm", falcon_mamba_7b.full_config(), int(32e9),
-         ("mamba_scan", "bank_matmul"), ("mamba_scan", "bank_matmul")),
+         ("mamba_scan", "bank_matmul"), ("mamba_scan", "bank_matmul"), DECODE_KW),
         ("recurrentgemma", "hybrid", recurrentgemma_9b.full_config(), int(32e9),
-         ("rg_lru_scan", "flash_attention"), None),
+         ("rg_lru_scan", "flash_attention"), ("rg_lru_scan",), RGEMMA_DECODE_KW),
     ]
     launches = collections.Counter()  # summed over every serve and decode run
     route_totals = collections.defaultdict(collections.Counter)  # the same, by route
-    for prefix, family, cfg, capacity, serve_expect, decode_expect in runs:
+    for prefix, family, cfg, capacity, serve_expect, decode_expect, knobs in runs:
         serve_launches, routes, eng = lm_serve_phase(torch, prefix, family, cfg, capacity,
                                                      serve_expect)
         launches.update(serve_launches)
         for name, r in routes.items():
             route_totals[name].update(r)
-        if decode_expect is not None:
-            decode_launches, routes = decode_phase(torch, prefix, eng, cfg, decode_expect)
-            launches.update(decode_launches)
-            for name, r in routes.items():
-                route_totals[name].update(r)
+        decode_launches, routes = decode_phase(torch, prefix, eng, cfg, decode_expect, knobs)
+        launches.update(decode_launches)
+        for name, r in routes.items():
+            route_totals[name].update(r)
         del eng  # the next family's start_phase frees this one's store
     assert all(launches[name] > 0 for name in main_rows), launches
 

@@ -14,8 +14,16 @@ layout).  The recurrence goes through ``kernels.ops.rg_lru_scan`` and the
 local attention through ``ops.flash_attention(window=...)``: the Hopper
 kernels on CUDA tensors, the plain versions on CPU tensors.  The scan takes
 any sequence length, so the JAX package's identity padding up to a chunk
-multiple has no counterpart here.  Streaming decode (the ring-buffer KV
-cache) is not ported yet.
+multiple has no counterpart here.
+
+Streaming decode keeps, per request, the recurrent ``(h, conv)`` state of
+every recurrent layer and a ring buffer of ``window`` key/value slots per
+attention layer (slot = position % window): the state does not grow with
+the sequence.  The decode steps run the RG-LRU through the same
+``rg_lru_scan`` at S = 1 with the carried h, and attend over the ring in
+plain torch (``layers.gqa_attention``), as the JAX package does.  Where the
+JAX package returns updated copies of a cache or state pool, this port
+writes into it in place (recurrentgemma-9b's pool of 128 slots is 3.36 GB).
 """
 from __future__ import annotations
 
@@ -58,6 +66,7 @@ class GriffinConfig:
     tie_embeddings: bool = True
     logit_softcap: Optional[float] = 30.0
     dtype: str = "float32"  # numpy dtype name
+    kv_repl: int = 1  # the ring stores each kv head this many times
 
     @property
     def padded_vocab(self) -> int:
@@ -69,6 +78,10 @@ class GriffinConfig:
             raise ValueError(f"n_layers {self.n_layers} is not a multiple of the "
                              f"pattern's {len(self.pattern)} layers")
         return self.n_layers // len(self.pattern)
+
+    @property
+    def kv_stored_heads(self) -> int:
+        return self.n_kv_heads * self.kv_repl
 
     @property
     def gate_blocks(self) -> int:
@@ -176,18 +189,23 @@ def _rglru_coeffs(p: dict, x: torch.Tensor) -> tuple:
     return a, beta * (i * x.float())
 
 
-def _recurrent_mixer(cfg: GriffinConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    """Griffin recurrent block over a whole sequence from a zero state:
-    x (B, S, d) -> (B, S, d).  The recurrence goes through
-    ``ops.rg_lru_scan``."""
+def _recurrent_mixer(cfg: GriffinConfig, p: dict, x: torch.Tensor,
+                     state: Optional[dict] = None) -> tuple:
+    """Griffin recurrent block: x (B, S, d); state {"h": (B, dr) float32,
+    "conv": (B, K-1, dr)} or None (zeros).  Returns (y (B, S, d), new
+    state).  The recurrence goes through ``ops.rg_lru_scan`` at any S, a
+    single decode token included."""
     B = x.shape[0]
     xb = L.dense(x, p["in_x"]["w"])  # (B, S, dr) recurrent branch
     gate = F.gelu(L.dense(x, p["in_gate"]["w"]).float(), approximate="tanh")
-    xc, _ = _conv1d(xb, p["conv"]["w"], p["conv"]["b"])
+    xc, new_conv = _conv1d(xb, p["conv"]["w"], p["conv"]["b"],
+                           state["conv"] if state is not None else None)
     a, b = _rglru_coeffs(p["rglru"], xc)
-    h0 = torch.zeros((B, cfg.d_rnn), dtype=torch.float32, device=x.device)
-    h_all, _ = kops.rg_lru_scan(a, b, h0)
-    return L.dense((h_all * gate).to(x.dtype), p["out_proj"]["w"])
+    h0 = state["h"] if state is not None else torch.zeros(
+        (B, cfg.d_rnn), dtype=torch.float32, device=x.device)
+    h_all, h_last = kops.rg_lru_scan(a, b, h0.contiguous())
+    y = L.dense((h_all * gate).to(x.dtype), p["out_proj"]["w"])
+    return y, {"h": h_last, "conv": new_conv}
 
 
 # ---------------------------------------------------------------------------
@@ -209,6 +227,39 @@ def _attn_full(cfg: GriffinConfig, p: dict, x: torch.Tensor,
     return L.dense(attn.reshape(B, S, -1), p["wo"])
 
 
+def _attn_decode(cfg: GriffinConfig, p: dict, cache_l: dict, x: torch.Tensor,
+                 positions: torch.Tensor) -> torch.Tensor:
+    """Ring-buffer local attention for decode: x (B, Sn, d) at ``positions``
+    (B, Sn); cache k/v (B, W, Hs, D), written in place at slot = position %
+    W.  Slot s then holds the largest position <= the last one with that
+    remainder; slots never written (a negative stored position) and keys
+    outside the window are masked.  Plain torch, as in the JAX package.
+    Returns the block output (B, Sn, d)."""
+    B, Sn, _ = x.shape
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    ck, cv = cache_l["k"], cache_l["v"]
+    W = ck.shape[1]
+    q = L.apply_rope(L.dense(x, p["wq"]).reshape(B, Sn, Hq, D), positions, cfg.rope_theta, D)
+    k = L.apply_rope(L.dense(x, p["wk"]).reshape(B, Sn, Hkv, D), positions, cfg.rope_theta, D)
+    v = L.dense(x, p["wv"]).reshape(B, Sn, Hkv, D)
+    if cfg.kv_repl > 1:
+        k = k.repeat_interleave(cfg.kv_repl, dim=2)
+        v = v.repeat_interleave(cfg.kv_repl, dim=2)
+    # of more than W new tokens only the last W stay in the ring
+    keep = min(Sn, W)
+    rows = torch.arange(B, device=x.device)[:, None]
+    slots = (positions[:, Sn - keep:] % W).long()
+    ck[rows, slots] = k[:, Sn - keep:].to(ck.dtype)
+    cv[rows, slots] = v[:, Sn - keep:].to(cv.dtype)
+    slot_ids = torch.arange(W, dtype=positions.dtype, device=x.device)[None, :]
+    last = positions[:, -1:]
+    stored_pos = last - ((last - slot_ids) % W)  # (B, W)
+    mask = L.attention_mask(positions, stored_pos, causal=True, window=cfg.window)
+    mask = mask & (stored_pos >= 0)[:, None, None, :]
+    attn = L.gqa_attention(q, ck, cv, mask)
+    return L.dense(attn.reshape(B, Sn, -1), p["wo"])
+
+
 # ---------------------------------------------------------------------------
 # Layers / forward
 # ---------------------------------------------------------------------------
@@ -218,12 +269,18 @@ def _layer(cfg: GriffinConfig, kind: str, p: dict, x: torch.Tensor,
            positions: torch.Tensor) -> torch.Tensor:
     h = L.apply_norm(cfg.norm, x, p.get("ln1", {}))
     if kind == "rec":
-        y = _recurrent_mixer(cfg, p["rec"], h)
+        y, _ = _recurrent_mixer(cfg, p["rec"], h)
     else:
         y = _attn_full(cfg, p["attn"], h, positions)
     x = x + y
     h = L.apply_norm(cfg.norm, x, p.get("ln2", {}))
     return x + L.ffn(h, p["mlp"], act=cfg.act, gated=cfg.gated_ffn)
+
+
+def _embed(cfg: GriffinConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding scaled by sqrt(d_model), as gemma does."""
+    x = L.embed(tokens, params["embed"]["table"])
+    return x * torch.sqrt(torch.tensor(float(cfg.d_model), dtype=x.dtype, device=x.device))
 
 
 def trunk(cfg: GriffinConfig, params: dict, tokens: torch.Tensor,
@@ -238,8 +295,7 @@ def trunk(cfg: GriffinConfig, params: dict, tokens: torch.Tensor,
             "port does not have yet; only positions 0..S-1 run through the flash kernel")
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
-    x = L.embed(tokens, params["embed"]["table"])
-    x = x * torch.sqrt(torch.tensor(float(cfg.d_model), dtype=x.dtype, device=x.device))
+    x = _embed(cfg, params, tokens)
     for r in range(cfg.n_repeats):
         rep = params["repeats"][str(r)]
         for i, kind in enumerate(cfg.pattern):
@@ -297,3 +353,161 @@ def bank_head(cfg: GriffinConfig, bank_params: dict, x: torch.Tensor) -> torch.T
     B, S, d = x.shape
     logits = kops.bank_matmul(xn.reshape(n_bank, B * S, d), bank_params["lm_head"]["w"])
     return _softcap(cfg, logits.reshape(n_bank, B, S, -1))
+
+
+# ---------------------------------------------------------------------------
+# Stateful decode: (h, conv) per recurrent layer, a KV ring per attention layer
+# ---------------------------------------------------------------------------
+
+
+def _layer_decode(cfg: GriffinConfig, kind: str, p: dict, x: torch.Tensor, state: dict,
+                  positions: torch.Tensor) -> tuple:
+    """One layer of a decode step against its state: a recurrent layer's
+    {"h", "conv"} (returned anew) or an attention layer's ring {"k", "v"}
+    (written in place and returned as it is).  Returns (x, state)."""
+    h = L.apply_norm(cfg.norm, x, p.get("ln1", {}))
+    if kind == "rec":
+        y, state = _recurrent_mixer(cfg, p["rec"], h, state)
+    else:
+        y = _attn_decode(cfg, p["attn"], state, h, positions)
+    x = x + y
+    h = L.apply_norm(cfg.norm, x, p.get("ln2", {}))
+    return x + L.ffn(h, p["mlp"], act=cfg.act, gated=cfg.gated_ffn), state
+
+
+def init_cache(cfg: GriffinConfig, batch: int, max_len: int, dtype=None,
+               device=None) -> dict:
+    """Per pattern position ``"{i}_{kind}"``, over the repeats: a recurrent
+    layer's h (R, B, dr) float32 and conv history (R, B, K-1, dr), an
+    attention layer's ring k/v (R, B, W, Hs, D) with W = min(window,
+    max_len); and ``length`` (a Python int)."""
+    device = resolve_device(device)
+    dt = torch_dtype(dtype or cfg.dtype)
+    R, W, Hs = cfg.n_repeats, min(cfg.window, max_len), cfg.kv_stored_heads
+    cache: dict = {}
+    for i, kind in enumerate(cfg.pattern):
+        if kind == "rec":
+            cache[f"{i}_{kind}"] = {
+                "h": torch.zeros((R, batch, cfg.d_rnn), dtype=torch.float32, device=device),
+                "conv": torch.zeros((R, batch, cfg.conv_width - 1, cfg.d_rnn), dtype=dt,
+                                    device=device)}
+        else:
+            cache[f"{i}_{kind}"] = {
+                kv: torch.zeros((R, batch, W, Hs, cfg.head_dim), dtype=dt, device=device)
+                for kv in ("k", "v")}
+    cache["length"] = 0
+    return cache
+
+
+def decode_step(cfg: GriffinConfig, params: dict, cache: dict,
+                tokens: torch.Tensor) -> tuple:
+    """tokens (B, S_new) -> (logits (B, S_new, V) float32, cache with the new
+    state written in place and ``length`` advanced).  Works for a prompt
+    too: the scan carries the state over every new token."""
+    B, Sn = tokens.shape
+    length = cache["length"]
+    positions = (length + torch.arange(Sn, dtype=torch.int32,
+                                       device=tokens.device)).expand(B, Sn)
+    x = _embed(cfg, params, tokens)
+    for r in range(cfg.n_repeats):
+        rep = params["repeats"][str(r)]
+        for i, kind in enumerate(cfg.pattern):
+            key = f"{i}_{kind}"
+            st = cache[key]
+            x, new = _layer_decode(cfg, kind, rep[key], x, {n: t[r] for n, t in st.items()},
+                                   positions)
+            if kind == "rec":  # the ring was written in place
+                st["h"][r], st["conv"][r] = new["h"], new["conv"]
+    return head(cfg, params, x), {**cache, "length": length + Sn}
+
+
+def prefill(cfg: GriffinConfig, params: dict, tokens: torch.Tensor, max_len: int) -> tuple:
+    """A fresh cache on the tokens' device, then :func:`decode_step` over
+    the whole prompt."""
+    cache = init_cache(cfg, tokens.shape[0], max_len, device=tokens.device)
+    return decode_step(cfg, params, cache, tokens)
+
+
+# ---------------------------------------------------------------------------
+# Paged decode: O(window) state per request in the serving pool
+# ---------------------------------------------------------------------------
+
+
+def init_state_pool(cfg: GriffinConfig, num_pages: int, page_size: int, dtype=None,
+                    device=None) -> dict:
+    """Pool for ``serving.decode.PagedKVPool``: dicts under "k" and "v"
+    keyed by pattern position, each (R, num_pages, ...) — a recurrent
+    layer's h under "k" and conv history under "v", an attention layer's
+    ring k/v of the full ``window`` slots.  A request's whole state lives in
+    its FIRST page slot (``tables[:, 0]``); ``page_size`` only shapes the
+    admission ledger.  Paged == unpaged therefore needs ``window <=
+    max_len`` (the unpaged ring has min(window, max_len) slots): the
+    adapter's decode split enforces it."""
+    del page_size
+    device = resolve_device(device)
+    dt = torch_dtype(dtype or cfg.dtype)
+    R, W, Hs = cfg.n_repeats, cfg.window, cfg.kv_stored_heads
+    k, v = {}, {}
+    for i, kind in enumerate(cfg.pattern):
+        key = f"{i}_{kind}"
+        if kind == "rec":
+            k[key] = torch.zeros((R, num_pages, cfg.d_rnn), dtype=torch.float32, device=device)
+            v[key] = torch.zeros((R, num_pages, cfg.conv_width - 1, cfg.d_rnn), dtype=dt,
+                                 device=device)
+        else:
+            k[key] = torch.zeros((R, num_pages, W, Hs, cfg.head_dim), dtype=dt, device=device)
+            v[key] = torch.zeros((R, num_pages, W, Hs, cfg.head_dim), dtype=dt, device=device)
+    return {"k": k, "v": v}
+
+
+def paged_trunk_step(cfg: GriffinConfig, params: dict, pool: dict, tables: torch.Tensor,
+                     lengths: torch.Tensor, tokens: torch.Tensor) -> tuple:
+    """One decode step over the paged state pool, layer by layer: read each
+    row's state from its page-0 slot, run the same layer as
+    :func:`decode_step` at the row's own position, write the whole state
+    back in place.  A row with ``lengths == 0`` (a fresh admission, possibly
+    onto a recycled slot) reads exact zeros, so the write-back clears what
+    the slot's last tenant left.  Padded batch rows may duplicate a real
+    row; the duplicate writes carry the same values.  tokens (B,) ->
+    (hidden (B, 1, d), pool)."""
+    sid = tables[:, 0].long()
+    lengths = lengths.to(torch.int32)
+    fresh = lengths == 0
+    positions = lengths[:, None]
+    x = _embed(cfg, params, tokens[:, None])
+    for r in range(cfg.n_repeats):
+        rep = params["repeats"][str(r)]
+        for i, kind in enumerate(cfg.pattern):
+            key = f"{i}_{kind}"
+            # (P, ...) views of the pool; "k" holds h or the ring's keys,
+            # "v" the conv history or the ring's values
+            slabs = {n: pool[kv][key][r] for n, kv in
+                     zip(("h", "conv") if kind == "rec" else ("k", "v"), ("k", "v"))}
+            state = {}
+            for n, slab in slabs.items():
+                g = slab.index_select(0, sid)
+                state[n] = g.masked_fill(fresh.view((-1,) + (1,) * (g.dim() - 1)), 0.0)
+            x, state = _layer_decode(cfg, kind, rep[key], x, state, positions)
+            for n, slab in slabs.items():
+                slab.index_copy_(0, sid, state[n].to(slab.dtype))
+    return x, pool
+
+
+def paged_prefill_chunk(cfg: GriffinConfig, params: dict, pool: dict,
+                        tables: torch.Tensor, lengths: torch.Tensor,
+                        tokens: torch.Tensor) -> tuple:
+    """Chunked prompt admission: C sequential :func:`paged_trunk_step` calls
+    in one dispatch of the decoder, so it is the token-by-token path.
+    tokens (B, C) -> (hidden (B, C, d), pool)."""
+    hs = []
+    for c in range(tokens.shape[1]):
+        h, pool = paged_trunk_step(cfg, params, pool, tables, lengths + c, tokens[:, c])
+        hs.append(h)
+    return torch.cat(hs, dim=1), pool
+
+
+def paged_decode_step(cfg: GriffinConfig, params: dict, pool: dict, tables: torch.Tensor,
+                      lengths: torch.Tensor, tokens: torch.Tensor) -> tuple:
+    """Full paged step for a singleton (unmerged) program: trunk + head."""
+    x, pool = paged_trunk_step(cfg, params, pool, tables, lengths, tokens)
+    return head(cfg, params, x), pool

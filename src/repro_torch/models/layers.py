@@ -7,8 +7,11 @@ address every weight by its path.  Conventions follow the JAX package:
     q (B, S, Hq, D), kv (B, S, Hkv, D);
   * matmuls accumulate in float32.  ``dense`` rounds once to the
     activation dtype; ``unembed`` returns the float32 sums (logits).  A
-    bf16 ``torch.matmul`` would round the logits to bf16, so ``unembed``
-    widens its inputs first (bf16 products are exact in f32).
+    bf16 ``torch.matmul`` would round the logits to bf16, so on a CUDA
+    tensor ``unembed`` asks cuBLAS for bf16 operands with a float32 output
+    (a tensor-core GEMM that reads the table as it is stored), and on a CPU
+    tensor, where that call does not exist, it widens both operands first.
+    The two compute the same function: bf16 products are exact in f32.
 """
 from __future__ import annotations
 
@@ -235,6 +238,12 @@ def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 
 
 def unembed(x: torch.Tensor, table_or_head: torch.Tensor, transpose: bool):
-    """float32 logits over the *padded* vocab; caller slices real vocab."""
-    w = table_or_head.float()
-    return torch.matmul(x.float(), w.t() if transpose else w)
+    """float32 logits over the *padded* vocab; caller slices real vocab.
+    ``transpose`` takes a tied (V, d) embedding table, else a (d, V) head.
+    Half-precision operands on the card go through one cuBLAS GEMM with a
+    float32 output on the 2-D view (no float32 copy of the table)."""
+    w = table_or_head.t() if transpose else table_or_head
+    if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16) and w.dtype == x.dtype:
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], w.shape[-1])
+    return torch.matmul(x.float(), w.float())

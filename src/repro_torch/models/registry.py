@@ -300,13 +300,14 @@ class SSMAdapter(_TokenLMAdapter):
 class GriffinAdapter(_TokenLMAdapter):
     """Griffin recurrent/local-attention hybrids: the RG-LRU runs through
     ``ops.rg_lru_scan`` and the local attention through
-    ``ops.flash_attention(window=...)``.  Merge-and-serve only: streaming
-    decode (a ring-buffer KV of ``window`` slots per attention layer) is
-    not ported yet."""
+    ``ops.flash_attention(window=...)``.  Streaming decode carries the
+    recurrent ``(h, conv)`` state plus a ring-buffer KV of ``window`` slots
+    per attention layer, all in each request's FIRST page slot of the state
+    pool; decode attends over the ring in plain torch."""
 
     name = "hybrid"
     module = griffin
-    can_decode = False
+    init_pool_fn = staticmethod(griffin.init_state_pool)
 
     def default_config(self):
         return griffin.GriffinConfig(
@@ -317,8 +318,17 @@ class GriffinAdapter(_TokenLMAdapter):
         )
 
     def _build_decode_split(self, cfg) -> DecodeSplit:
-        raise NotImplementedError(
-            "hybrid: streaming decode (ring-buffer local attention) is not ported yet")
+        def init_cache(batch, max_len, device=None, _cfg=cfg):
+            # the paged pool rings exactly `window` KV slots per request, the
+            # unpaged cache min(window, max_len): paged == unpaged replay
+            # (serving.decode.verify_bitwise) therefore needs the full ring
+            if _cfg.window > max_len:
+                raise ValueError(
+                    f"hybrid: streaming decode needs window <= max_len "
+                    f"(window={_cfg.window}, max_len={max_len})")
+            return griffin.init_cache(_cfg, batch, max_len, device=device)
+
+        return dataclasses.replace(super()._build_decode_split(cfg), init_cache=init_cache)
 
 
 ADAPTERS: dict = {}

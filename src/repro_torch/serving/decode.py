@@ -29,10 +29,12 @@ written in place and there is nothing to compile per shape.
 
 Paged == unpaged contract: the paged path gathers pages into exactly the
 contiguous ``init_cache`` layout (Smax = max_len) and both paths route
-attention through ``ops.decode_attention``, so every generated token and
-its logits match a standalone unpaged ``decode_step`` replay of the same
-request (:func:`verify_bitwise`) wherever the dense products give the same
-bits for a row at batch 1 and at the bucket's batch.
+attention through ``ops.decode_attention`` (a recurrent or hybrid family
+reads its whole state from one slot and runs the same layers on it), so
+every generated token and its logits match a standalone unpaged
+``decode_step`` replay of the same request (:func:`verify_bitwise`)
+wherever the products and reductions give the same bits for a row at
+batch 1 and at the bucket's batch.
 """
 from __future__ import annotations
 
@@ -78,8 +80,10 @@ class PoolExhausted(RuntimeError):
 class PagedKVPool:
     """Page ownership for one device-side KV pool.
 
-    The arrays (``k``/``v``: (L, P, page, Hs, D)) live here; tables map a
-    live request id to the ordered page list backing its sequence.  Admission
+    The arrays live here: ``k``/``v`` (L, P, page, Hs, D) for a KV pool, or
+    dicts of per-layer-kind arrays for a recurrent or hybrid state pool
+    (``device`` is read from the first leaf).  Tables map a live request id
+    to the ordered page list backing its sequence.  Admission
     RESERVES the worst case (ceil((prompt + max_new) / page)) so ``ensure``
     can always extend a live request; pages allocate lazily as the sequence
     grows and return to the free list on :meth:`release`.
@@ -93,6 +97,10 @@ class PagedKVPool:
     def __init__(self, init_pool: Callable, num_pages: int, page_size: int):
         kv = init_pool(num_pages, page_size)
         self.k, self.v = kv["k"], kv["v"]
+        leaf = self.k
+        while isinstance(leaf, dict):
+            leaf = next(iter(leaf.values()))
+        self.device = getattr(leaf, "device", None)
         self.num_pages = num_pages
         self.page_size = page_size
         # pop() takes from the tail: keep it ascending so early requests get
@@ -263,6 +271,10 @@ class StreamingDecoder:
         self._rid = 0
         self._t0 = self.clock()
         self._epoch = self.store.epoch
+        # trunk passes: one per trunk or singleton step dispatch and one per
+        # token of a prefill-chunk dispatch -- each runs every trunk layer
+        # once on one token per row -- in the warm-up and in the run
+        self.trunk_passes = {"warmup": 0, "run": 0}
         self.stats = {
             "steps": 0, "tokens_decoded": 0, "prompt_tokens": 0,
             "trunk_dispatches": 0, "bank_dispatches": 0,
@@ -387,7 +399,7 @@ class StreamingDecoder:
             return
         pool = self.pool_for(group[0])
         params = self._params(group[0])
-        device = pool.k.device
+        device = pool.device
         by_k: dict = {}
         for s in slots:
             k = min(self.page_size, len(s.prompt) - 1 - s.pos)
@@ -407,6 +419,7 @@ class StreamingDecoder:
                 torch.as_tensor(tokens, device=device))
             pool.k, pool.v = kv["k"], kv["v"]
             self.stats["prefill_chunk_dispatches"] += 1
+            self.trunk_passes["run"] += k
             for s in ss:
                 s.length += k
                 s.pos += k
@@ -418,7 +431,7 @@ class StreamingDecoder:
         lead = group[0]
         dec = self._decode(lead)
         pool = self.pool_for(lead)
-        device = pool.k.device
+        device = pool.device
         bucket = bucket_for(len(slots), self.buckets)
 
         for s in slots:
@@ -456,6 +469,7 @@ class StreamingDecoder:
             rows = out[:, 0][None]
             row_of = {iid: 0}
         pool.k, pool.v = kv["k"], kv["v"]
+        self.trunk_passes["run"] += 1
 
         emitting = []
         for j, s in enumerate(slots):
@@ -509,6 +523,7 @@ class StreamingDecoder:
                         out = dec.head(self._params(iid), hidden)
                 else:
                     out, _ = dec.step(self._params(group[0]), kv, *args)
+                self.trunk_passes["warmup"] += 1
                 out.sum().item()  # wait for the device
             if self.chunked_prefill and dec.prefill_chunk is not None:
                 # exactly the chunk sizes the queued prompts will need (pos
@@ -529,6 +544,7 @@ class StreamingDecoder:
                             torch.zeros((b, self.max_pages), dtype=torch.int32, device=device),
                             torch.zeros((b,), dtype=torch.int32, device=device),
                             torch.zeros((b, k), dtype=torch.int32, device=device))
+                        self.trunk_passes["warmup"] += k
                         hidden.sum().item()
 
     def run(self, requests: list, horizon_s: float = 60.0,

@@ -597,3 +597,104 @@ def test_mamba_scan_repeats_bitwise_inside_a_cuda_graph(cuda_device):
     torch.cuda.synchronize()
     for y, h in outs:
         assert torch.equal(y, want[0]) and torch.equal(h, want[1])
+
+
+# ---------------------------------------------------------------------------
+# the tied head on tensor cores; griffin streaming decode
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tied", [True, False])
+def test_unembed_takes_bf16_operands_on_the_card(cuda_device, tied):
+    """``layers.unembed`` on bf16 CUDA tensors: float32 logits within 2e-3
+    of the row maximum of the widened float32 product, and no float32 copy
+    of the table (peak memory grows by less than half of one)."""
+    from repro_torch.models import layers
+
+    rnd = _rnd(cuda_device, "bfloat16", 21)
+    V, d = 32768, 1024
+    w = rnd(V, d) if tied else rnd(d, V)
+    x = rnd(2, 4, d)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = layers.unembed(x, w, transpose=tied)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - before < w.numel() * 4 // 2
+    assert out.shape == (2, 4, V) and out.dtype == torch.float32
+    want = torch.matmul(x.float(), (w.t() if tied else w).float())
+    scale = want.abs().amax(dim=-1, keepdim=True)
+    torch.testing.assert_close(out / scale, want / scale, rtol=0, atol=2e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rg_lru_decode_steps_carry_h0(cuda_device, dtype):
+    """rg_lru_scan at S = 1, each launch taking the last one's h_last as its
+    h0 (a decode step's recurrence), at recurrentgemma's width: every step
+    against rg_lru_ref, and the chain bitwise the one S = 16 scan."""
+    rnd = _rnd(cuda_device, dtype, 22)
+    f32 = _rnd(cuda_device, "float32", 23)
+    B, S, d = 8, 16, 4096
+    a = torch.sigmoid(rnd(B, S, d).float()).to(getattr(torch, dtype))
+    b, h0 = rnd(B, S, d), f32(B, d)
+    y, h = ops.rg_lru_scan(a, b, h0)
+    hc, ys = h0, []
+    for t in range(S):
+        at, bt = a[:, t:t + 1].contiguous(), b[:, t:t + 1].contiguous()
+        yt, hn = ops.rg_lru_scan(at, bt, hc)
+        yr, hr = tref.rg_lru_ref(at, bt, hc)
+        torch.testing.assert_close(yt, yr, **TOL["float32"])
+        torch.testing.assert_close(hn, hr, **TOL["float32"])
+        ys.append(yt)
+        hc = hn
+    assert torch.equal(torch.cat(ys, dim=1), y) and torch.equal(hc, h)
+
+
+@pytest.mark.gpu
+def test_merged_tied_hybrid_group_streams_on_the_card_against_the_plain_path(cuda_device):
+    """A merged trio of a small float32 griffin (tied head, window 8)
+    streamed on the card with chunked prefill, every request past the
+    window so the ring wraps: rg_lru_scan launches once per recurrent layer
+    per trunk pass, and every emitted logits row matches a replay of the
+    same tokens on the CPU through the plain versions (2e-3)."""
+    from repro_torch.models import griffin
+    from repro_torch.models.griffin import GriffinConfig
+    from repro_torch.serving.decode import DecodeRequest
+    from repro_torch.utils.tree import flatten_paths, unflatten_paths
+
+    cfg = GriffinConfig(name="gpu-griffin", n_layers=6, d_model=128, d_rnn=128, n_heads=4,
+                        n_kv_heads=1, head_dim=64, d_ff=256, vocab_size=300, window=8,
+                        tie_embeddings=True, dtype="float32")
+    mids = ("A", "B", "C")
+    _, eng = _merged_engine("hybrid", cfg, mids, cuda_device, (1, 2, 4))
+    g = torch.Generator().manual_seed(8)
+    reqs = [DecodeRequest(m, torch.randint(0, cfg.vocab_size, (9,), generator=g).numpy(),
+                          max_new_tokens=8) for _ in range(2) for m in mids]
+    ops.reset_kernel_launches()
+    stats = eng.serve_decode(reqs, page_size=4, num_pages=32, max_slots=6, max_len=16,
+                             record_logits=True, chunked_prefill=True)
+    launches = ops.kernel_launches()
+    dec = eng.last_decoder
+    assert stats["completed"] == len(reqs) and stats["pool_identity_ok"]
+    assert stats["trunk_dispatches"] == stats["group_steps"] > 0
+    assert stats["bank_dispatches"] == 0 and stats["head_dispatches"] >= stats["group_steps"]
+    n_rec = cfg.pattern.count("rec") * cfg.n_repeats
+    passes = dec.trunk_passes
+    assert launches["rg_lru_scan"] == n_rec * (passes["warmup"] + passes["run"]) > 0
+    assert launches["flash_attention"] == launches["bank_matmul"] == 0
+    for c in dec.completions:
+        params = unflatten_paths({p: t.cpu() for p, t in flatten_paths(
+            eng.store.materialize(c.request.instance_id)).items()})
+        cache = griffin.init_cache(cfg, 1, 16, device="cpu")
+        seq = [int(t) for t in c.request.prompt] + c.tokens[:-1]
+        rows = []
+        for i, tok in enumerate(seq):
+            logits, cache = griffin.decode_step(cfg, params, cache,
+                                                torch.tensor([[tok]], dtype=torch.int64))
+            if i >= len(c.request.prompt) - 1:
+                rows.append(logits[0, 0])
+        assert len(rows) == len(c.tokens) == 8
+        for row, got in zip(rows, c.logits):
+            torch.testing.assert_close(torch.from_numpy(got), row, **TOL["float32"])

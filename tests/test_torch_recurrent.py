@@ -190,16 +190,19 @@ def test_split_and_bank_are_bitwise_inside_the_port(family, which):
 
 
 def test_griffin_takes_standard_positions_only_and_has_no_decode_yet():
+    """The trunk serves only the standard positions 0..S-1; streaming decode
+    is there (tests/test_torch_griffin_decode.py holds it against the JAX
+    package): the adapter decodes and every program gets the split."""
     _, tcfg = _cfgs("hybrid", "adapter")
     params = get_adapter("hybrid").init(tcfg, seed=0, device=CPU)
     toks = torch.zeros((1, 4), dtype=torch.int64)
     with pytest.raises(NotImplementedError, match="positions"):
         TG.trunk(tcfg, params, toks, positions=torch.zeros((1, 4), dtype=torch.int32))
     adapter = get_adapter("hybrid")
-    assert not adapter.can_decode
-    with pytest.raises(NotImplementedError, match="streaming decode"):
-        adapter.decode_split(tcfg)
-    assert ModelProgram.from_adapter(adapter, "A", cfg=tcfg).decode is None
+    assert adapter.can_decode
+    ds = adapter.decode_split(tcfg)
+    assert ds.trunk_paths == adapter.split(tcfg).prefix_paths
+    assert ModelProgram.from_adapter(adapter, "A", cfg=tcfg).decode is ds
 
 
 # ---------------------------------------------------------------------------
