@@ -53,9 +53,27 @@ device memory still allocated and closes with its seconds):
    decode steps with all 8 slots live, timed and under ``torch.profiler``
    (``_decode_profile``).
 
+7. GEMEL's planning step on a full-width stablelm-1.6b zoo
+   (``stablelm_plan_cloud`` / ``stablelm_plan``): lm-A/B/D of phase 5 and
+   a foreign lm-C; the CKA-prefiltered ``StagedPlanner`` with the
+   coherence surrogate over the trunk records (calibration: 32 sequences
+   of 8 tokens), the plan shipped as JSON with its bf16 weights, the cloud
+   store freed, then ``MergeAwareEngine.apply_plan`` on a live engine over
+   a fresh unmerged store with 8 requests of 128 tokens per member already
+   queued, and the serve.  Gates: a cross-variant group, one epoch bump,
+   every request served, one bank dispatch per shared micro-batch, rows
+   against direct forwards, shared buffers bitwise the cloud's (by
+   digest), resident bytes no more than the hand merge of lm-A/B/D plus
+   lm-C unmerged, tensor-core routes only;
+8. joint retraining on the card (``small_cnn_retrain``):
+   ``examples/quickstart.py``'s two pretrained small CNNs through
+   ``IncrementalMerger`` with ``MergeTrainer``; each attempt's shared
+   gradients against the members' separate ones, and its joint loss
+   before and after retraining.
+
 Each family's store, engine and decoder are released before the next
 family's phase.  Then the ``{"kernels": [...]}`` line (each kernel's
-launches summed over every serve and decode run above, by route where a
+launches summed over every serve, decode and plan run above, by route where a
 kernel has two; ``route`` is "cuda" for all, ``cuda_route`` the design
 the main row took) and, last, the device line.  Needs one card; imports
 nothing of JAX and nothing of the JAX package.
@@ -64,6 +82,7 @@ from __future__ import annotations
 
 import collections
 import gc
+import itertools
 import json
 import subprocess
 import sys
@@ -84,6 +103,10 @@ TOL = {"float32": dict(rtol=2e-3, atol=2e-3), "bfloat16": dict(rtol=2e-2, atol=2
 BUCKETS = (1, 2, 4, 8)
 REQS_PER_MEMBER = 8
 LM_MIDS = ("lm-A", "lm-B", "lm-D")
+# the planning phase's zoo: LM_MIDS and a foreign member, and the scorer's
+# and surrogate's similarity floor (benchmarks/lm_merging.py's)
+PLAN_MIDS = ("lm-A", "lm-B", "lm-C", "lm-D")
+PLAN_MIN_SIMILARITY = 0.5
 # the streaming-decode phase: the pool, slot and length knobs of serve_decode
 DECODE_KW = dict(page_size=16, num_pages=128, max_slots=8, max_len=128, buckets=BUCKETS,
                  chunked_prefill=True)
@@ -933,6 +956,381 @@ def profile_decode_steps(torch, eng, cfg, knobs: dict, name: str, timed: int = 5
 
 
 # ---------------------------------------------------------------------------
+# phase 7: GEMEL's planning step on a full-width stablelm-1.6b zoo
+# ---------------------------------------------------------------------------
+
+
+def plan_zoo(torch, adapter, cfg) -> dict:
+    """``lm_zoo``'s three variants plus lm-C, a foreign member initialised
+    from its own seed (the zoo of benchmarks/lm_merging.py)."""
+    zoo = lm_zoo(torch, adapter, cfg)
+    zoo["lm-C"] = adapter.init(cfg, seed=42, device="cuda")
+    return {m: zoo[m] for m in PLAN_MIDS}
+
+
+def digest(torch, t) -> str:
+    """blake2b of a tensor's bytes as stored (bf16 through its int16 view)."""
+    import hashlib
+
+    host = t.detach().cpu().contiguous()
+    if host.dtype == torch.bfloat16:
+        host = host.view(torch.int16)
+    return hashlib.blake2b(host.numpy().tobytes(), digest_size=16).hexdigest()
+
+
+def plain_cka_prefilter(groups: list, acts: dict, theta: float) -> tuple:
+    """The CKA prefilter's plain version, written apart from
+    ``RepresentationSimilarityScorer``: linear CKA through double-centred
+    Grams H·XXᵀ·H (the scorer centres the features instead), each column
+    cut to its largest coherent cluster (grown greedily from its most
+    similar pair while the least similarity to the cluster stays >=
+    ``theta``), a model that loses an appearance leaving the group's later
+    columns.  Returns (kept groups as sets of (model_id, path), the
+    appearances left sharing a column, groups pruned, members pruned)."""
+    import numpy as np
+
+    grams: dict = {}
+
+    def gram(r):
+        ck = (r.model_id, r.path.rsplit("/", 1)[0])
+        if ck not in grams:
+            a = acts[ck[0]][ck[1]]
+            x = np.asarray(a, np.float64).reshape(a.shape[0], -1)
+            h = np.eye(x.shape[0]) - 1.0 / x.shape[0]
+            grams[ck] = h @ (x @ x.T) @ h
+        return grams[ck]
+
+    def cka(a, b):
+        ka, kb = gram(a), gram(b)
+        return float(np.sum(ka * kb) / np.sqrt(np.sum(ka * ka) * np.sum(kb * kb)))
+
+    def cluster(col):
+        n = len(col)
+        sims = {(i, j): cka(col[i], col[j]) for i in range(n) for j in range(n) if i < j}
+        sims.update({(j, i): v for (i, j), v in list(sims.items())})
+        pair = max((p for p in sims if p[0] < p[1]), key=lambda p: sims[p])
+        if sims[pair] < theta:
+            return []
+        members = set(pair)
+        while len(members) < n:
+            gain = {c: min(sims[c, m] for m in members) for c in range(n) if c not in members}
+            c = max(sorted(gain), key=gain.get)
+            if gain[c] < theta:
+                break
+            members.add(c)
+        return [col[i] for i in sorted(members)]
+
+    kept, shared, pruned_groups, pruned_members = [], set(), 0, 0
+    for g in groups:
+        keep, pairs, broken = [], set(), set()
+        for col in g.columns():
+            col = [r for r in col if r.model_id not in broken]
+            if len(col) < 2:
+                keep += col
+                continue
+            kcol = cluster(col)
+            left = {r.model_id for r in col} - {r.model_id for r in kcol}
+            broken |= left if len(kcol) >= 2 else {r.model_id for r in col}
+            if len(kcol) >= 2:
+                keep += kcol
+                pairs |= {(r.model_id, r.path) for r in kcol}
+        if pairs:
+            kept.append(frozenset((r.model_id, r.path) for r in keep))
+            shared |= pairs
+            pruned_members += len(g.records) - len(keep)
+        else:
+            pruned_groups += 1
+            pruned_members += len(g.records)
+    return kept, shared, pruned_groups, pruned_members
+
+
+def stablelm_plan_phase(torch, cfg, capacity_bytes: int) -> tuple:
+    """The JAX package's ``merge_and_serve`` (benchmarks/lm_merging.py) at
+    full width: on the cloud side, the CKA-prefiltered ``StagedPlanner``
+    with the coherence surrogate over the trunk records of four members
+    (lm-A/B/D and the foreign lm-C), calibrated on one batch of 32
+    sequences of 8 tokens; ``MergePlan.to_json()`` with the shared weights.
+    The cloud store is freed (its shared buffers' digests kept) before the
+    edge side builds a fresh unmerged store, queues 8 requests of 128
+    tokens per member on a live ``MergeAwareEngine``, hot-swaps the plan in
+    with ``apply_plan(MergePlan.from_json(payload))`` and serves.  Returns
+    (kernel launches of the phase, their routes)."""
+    from repro_torch.core import MergePlan, ParamStore, RepresentationSimilarityScorer
+    from repro_torch.core import StagedPlanner, enumerate_groups
+    from repro_torch.core.policy import (
+        CoherenceSurrogateTrainer, calibration_activations, default_layer_key, linear_cka,
+    )
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import get_adapter
+    from repro_torch.utils.tree import flatten_paths, leaf_bytes
+
+    adapter = get_adapter("dense")
+    t_phase = start_phase(torch, "stablelm_plan")
+    ops.reset_kernel_launches()
+    t0 = time.perf_counter()
+    zoo = plan_zoo(torch, adapter, cfg)
+    cloud = ParamStore.from_models(zoo)
+    unmerged = cloud.resident_bytes()
+    trunk = adapter.split(cfg).prefix_paths
+    recs = [r for m in PLAN_MIDS for r in adapter.records(cfg, zoo[m], m) if r.path in trunk]
+    torch.cuda.synchronize()
+    zoo_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batch = adapter.calibration_batch(cfg, torch.Generator(device="cuda").manual_seed(7), 32)
+    acts = calibration_activations({m: (adapter, cfg, zoo[m]) for m in PLAN_MIDS}, batch)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    del zoo
+    # the surrogate reads no loss or data: accuracy_target 0.0, as the
+    # reference's plan_variants registers them
+    regs = [adapter.registered(cfg, m, 10 + i, accuracy_target=0.0, device="cuda")
+            for i, m in enumerate(PLAN_MIDS)]
+    scorer = RepresentationSimilarityScorer(acts, PLAN_MIN_SIMILARITY)
+    trainer = CoherenceSurrogateTrainer(acts, PLAN_MIN_SIMILARITY)
+    t0 = time.perf_counter()
+    res = StagedPlanner(cloud, regs, recs, trainer, scorer=scorer).run()
+    plan_s = time.perf_counter() - t0  # the weights' encoding included
+    t0 = time.perf_counter()
+    payload = res.plan.to_json()
+    dump_s = time.perf_counter() - t0
+    cross = [pg for pg in res.plan.groups if any(len(c.members) >= 2 for c in pg.columns)]
+    # each member pair's lowest linear CKA over the trunk taps
+    taps = sorted({default_layer_key(p) for p in trunk})
+    min_cka = {f"{a}~{b}": min(linear_cka(acts[a][k], acts[b][k]) for k in taps)
+               for a, b in itertools.combinations(PLAN_MIDS, 2)}
+    # the prefilter against its plain version: at the planner's threshold,
+    # and at one that must prune (midway between lm-C's and the variants'
+    # lowest tap CKA, above some tap's lowest pair), where every kept group
+    # and count must agree; at the planner's threshold the plan shares
+    # exactly what the plain prefilter keeps
+    cands = enumerate_groups(recs)
+    foreign = max(v for k, v in min_cka.items() if "lm-C" in k)
+    variants = min(v for k, v in min_cka.items() if "lm-C" not in k)
+    prefilter_check = {}
+    for theta in (PLAN_MIN_SIMILARITY, (foreign + variants) / 2):
+        want = plain_cka_prefilter(cands, acts, theta)
+        probe = RepresentationSimilarityScorer(acts, theta)
+        got_kept, got_pruned = probe.prefilter(cands)
+        got = ([frozenset((r.model_id, r.path) for r in g.records) for g in got_kept],
+               len(got_pruned), probe.pruned_members)
+        assert got == (want[0], *want[2:]), (theta, got[1:], want[2:])
+        prefilter_check[f"{theta:.6f}"] = dict(kept_groups=len(want[0]), pruned_groups=want[2],
+                                               pruned_members=want[3])
+    assert want[3] >= 1, prefilter_check  # the second threshold did prune
+    base = plain_cka_prefilter(cands, acts, PLAN_MIN_SIMILARITY)
+    assert (res.pruned, scorer.pruned_members) == base[2:], (res.pruned, base[2:])
+    plan_members = {(r.model_id, r.path) for pg in res.plan.groups for c in pg.columns
+                    for r in c.members}
+    assert plan_members == base[1], "the plan shares other appearances than the plain keep"
+    shared_keys = sorted(cloud.shared_keys())
+    digests = {k: digest(torch, cloud.buffers[k]) for k in shared_keys}
+    planned = dict(plan_bytes=len(payload), committed_groups=res.committed,
+                   cross_variant_groups=len(cross), retrain_attempts=res.attempted,
+                   surrogate_calls=trainer.calls, pruned_prefilter=res.pruned,
+                   pruned_members=scorer.pruned_members, cloud_merged_bytes=res.final_bytes,
+                   shared_keys=len(shared_keys), min_tap_cka=min_cka,
+                   prefilter_vs_plain=prefilter_check, zoo_s=zoo_s,
+                   calibration_s=calib_s, planner_s=plan_s, to_json_s=dump_s)
+    del res, cloud, acts, scorer, trainer, recs, cands, probe
+    emit("stablelm_plan_cloud", **planned)
+    assert planned["cross_variant_groups"] >= 1, planned
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    edge = ParamStore.from_models(plan_zoo(torch, adapter, cfg))
+    assert edge.resident_bytes() == unmerged
+    # what merge_trunk finds for lm-A/B/D (one trunk, three heads), plus
+    # lm-C unmerged: the planner must find at least as much
+    trunk_bytes = sum(leaf_bytes(v) for p, v in flatten_paths(adapter.eval_params(cfg)).items()
+                      if p in trunk)
+    hand_bound = (trunk_bytes + sum(edge.model_bytes(m) - trunk_bytes for m in LM_MIDS)
+                  + edge.model_bytes("lm-C"))
+    eng = make_engine(adapter, cfg, edge, PLAN_MIDS, capacity_bytes)
+    gen = torch.Generator(device="cuda").manual_seed(100)
+    reqs = interleaved_requests(PLAN_MIDS, lambda: torch.randint(
+        0, cfg.vocab_size, (1, 128), generator=gen, device="cuda"))
+    for r in reqs:
+        eng.submit(r)
+    t0 = time.perf_counter()
+    plan = MergePlan.from_json(payload)
+    load_s = time.perf_counter() - t0
+    del payload
+    epoch0 = edge.epoch
+    t0 = time.perf_counter()
+    swap = eng.apply_plan(plan)
+    torch.cuda.synchronize()
+    apply_s = time.perf_counter() - t0
+    del plan
+    merged = edge.resident_bytes()
+    assert swap["epoch_bumps"] == 1 and edge.epoch == epoch0 + 1, swap
+    assert swap["pending_requests"] == len(reqs), swap
+    assert sorted(edge.shared_keys()) == shared_keys
+    differ = [k for k, d in digests.items() if digest(torch, edge.buffers[k]) != d]
+    assert not differ, f"shared buffers differ from the cloud's: {differ}"
+    assert merged <= hand_bound, (merged, hand_bound)
+    groups = eng.prefix_groups()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    stats = eng.serve(horizon_s=600.0, warmup=reqs[0].payload)
+    serve_s = time.perf_counter() - t0
+    launches, routes = ops.kernel_launches(), ops.route_launches()
+    shared_mbs = stats["microbatches"] - stats["forward_runs"]
+    assert stats["completed"] == len(reqs), stats
+    assert stats["suffix_dispatches"] == shared_mbs > 0, stats
+    assert launches["flash_attention"] > 0 and launches["bank_matmul"] > 0, launches
+    tensor_core_routes_only(routes)
+    err = max(served_vs_direct(torch, adapter, cfg, edge, eng,
+                               [r for r in reqs if r.instance_id in g], "bfloat16")
+              for g in groups)
+    emit("stablelm_plan", **planned, resident_bytes_unmerged=unmerged,
+         resident_bytes_merged=merged, hand_merge_bound_bytes=hand_bound,
+         saved_fraction=1 - merged / unmerged, prefix_groups=groups,
+         swap={k: v for k, v in swap.items() if k != "shared_keys"},
+         from_json_s=load_s, apply_plan_s=apply_s, shared_buffers_bitwise=len(digests),
+         stats=stats, shared_microbatches=shared_mbs, launches=launches, route_launches=routes,
+         serve_wall_s_with_warmup=serve_s, peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         max_abs_err_vs_forward=err, tol=TOL["bfloat16"], seconds=time.perf_counter() - t_phase)
+    return launches, routes
+
+
+# ---------------------------------------------------------------------------
+# phase 8: joint retraining on the card
+# ---------------------------------------------------------------------------
+
+
+class LoggedMergeTrainer:
+    """``MergeTrainer`` with two records per attempt: the joint loss of the
+    involved members on their first training batches right after the merge
+    and after the retraining, and, on the attempt's first step, how far
+    each shared buffer's joint gradient lies from the mean of the members'
+    separate gradients (the joint loss is their mean), relative to the
+    largest of the latter."""
+
+    def __init__(self, trainer):
+        self.trainer = trainer
+        self.attempts = []
+
+    def train(self, store, models):
+        import torch
+
+        from repro_torch.core.merging import joint_grads, joint_loss
+
+        bindings = {m.model_id: dict(store.bindings[m.model_id]) for m in models}
+        loss_fns = {m.model_id: m.loss_fn for m in models}
+        batches = {m.model_id: m.train_batches(0)[0] for m in models}
+        keys = sorted({k for b in bindings.values() for k in b.values()})
+        buffers = {k: store.buffers[k] for k in keys}
+        _, grads = joint_grads(bindings, loss_fns, buffers, batches)
+        per = [joint_grads({m: bindings[m]}, loss_fns, buffers, batches)[1] for m in bindings]
+        shared = [k for k in keys if sum(k in b.values() for b in bindings.values()) > 1]
+        rel = 0.0
+        for k in shared:
+            mean = sum(g[k] for g in per) / len(per)
+            rel = max(rel, ((grads[k] - mean).abs().max() / mean.abs().max()).item())
+        with torch.no_grad():
+            before = joint_loss(bindings, loss_fns, buffers, batches).item()
+        result = self.trainer.train(store, models)
+        with torch.no_grad():
+            after = joint_loss(bindings, loss_fns, {k: store.buffers[k] for k in keys},
+                               batches).item()
+        self.attempts.append(dict(models=sorted(bindings), shared_keys=len(shared),
+                                  grad_rel_err=rel, loss_before=before, loss_after=after,
+                                  success=result.success, epochs=result.epochs_used,
+                                  failed=sorted(result.failed_models)))
+        return result
+
+
+def small_cnn_retrain_phase(torch) -> None:
+    """``examples/quickstart.py`` on the card: two small CNNs pretrained on
+    two ``VisionStream`` feeds (280 AdamW steps each), then
+    ``IncrementalMerger`` with real joint retraining (``MergeTrainer``,
+    AdamW, up to 20 epochs an attempt, targets 0.9 of each member's
+    pretrained accuracy).  cuDNN runs its deterministic algorithms here:
+    the planner's decisions follow the trained accuracies, so a rerun on
+    the same card makes the same ones."""
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        _small_cnn_retrain(torch)
+
+
+def _small_cnn_retrain(torch) -> None:
+    from repro_torch.core import IncrementalMerger, MergeTrainer, ParamStore, RegisteredModel
+    from repro_torch.core import records_from_params
+    from repro_torch.core.validation import meets_targets, validate
+    from repro_torch.data.synthetic import VisionStream
+    from repro_torch.models import vision as VI
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.utils.ids import stable_seed
+
+    cfg = VI.SmallCNNConfig(task="classification", n_classes=4, depth=1, width=8, n_stages=2)
+    streams = {"cam-A": VisionStream(4, 32, seed=7, device="cuda"),
+               "cam-B": VisionStream(4, 32, seed=8, device="cuda")}
+    params, orig_acc = {}, {}
+    t0 = time.perf_counter()
+    for mid, stream in streams.items():
+        p0 = VI.init_small_cnn(cfg, seed=stable_seed(mid), device="cuda")
+        params[mid] = pretrain_small_cnn(torch, cfg, p0, stream)
+        with torch.no_grad():
+            orig_acc[mid] = float(VI.small_cnn_accuracy(cfg, params[mid], stream.batch_at(0)))
+    pretrain_s = time.perf_counter() - t0
+    store = ParamStore.from_models(params)
+    before = store.resident_bytes()
+    regs = [RegisteredModel(mid, lambda p, b: VI.small_cnn_loss(cfg, p, b),
+                            lambda p, b: VI.small_cnn_accuracy(cfg, p, b),
+                            lambda e, s=streams[mid]: s.epoch(e, n_batches=4),
+                            streams[mid].batch_at(0), accuracy_target=0.9,
+                            original_accuracy=orig_acc[mid])
+            for mid in params]
+    recs = sum((records_from_params(params[m], m) for m in params), [])
+    trainer = LoggedMergeTrainer(MergeTrainer(max_epochs=20, optimizer=AdamW(lr=2e-3)))
+    t0 = time.perf_counter()
+    result = IncrementalMerger(store, regs, recs, trainer, min_group_bytes=4096).run()
+    torch.cuda.synchronize()
+    merge_s = time.perf_counter() - t0
+    accs = validate(store, regs)
+    attempts = trainer.attempts
+    committed = [a for a in attempts if a["success"]]
+    assert result.committed >= 1, attempts
+    assert all(a["grad_rel_err"] <= 1e-5 for a in attempts), attempts
+    # the merge raises the members' joint loss and retraining brings it
+    # down: over the committed attempts together it falls
+    assert sum(a["loss_after"] for a in committed) < sum(a["loss_before"] for a in committed), \
+        committed
+    # VisionStream's pools come from numpy's default_rng, not the JAX
+    # package's jax.random: these decisions are the port's own, held by the
+    # gates above and not against the JAX package
+    emit("small_cnn_retrain", decisions="port's own", pretrain_s=pretrain_s,
+         original_accuracy=orig_acc,
+         committed=result.committed, attempted=result.attempted, discarded=result.discarded,
+         resident_bytes_unmerged=before, resident_bytes_merged=store.resident_bytes(),
+         saved_fraction=result.fraction_saved, merge_s=merge_s, attempts=attempts,
+         events=[dict(group=e.group_signature[0], saved_bytes=e.saved_bytes,
+                      accuracies=e.accuracies) for e in result.events],
+         validated_accuracy=accs, targets_met=meets_targets(accs, regs),
+         max_grad_rel_err=max(a["grad_rel_err"] for a in attempts))
+
+
+def pretrain_small_cnn(torch, cfg, params: dict, stream, steps: int = 280,
+                       lr: float = 3e-3) -> dict:
+    """``steps`` AdamW steps of ``small_cnn_loss`` on the stream's batches
+    in order (examples/quickstart.py's ``pretrain``)."""
+    from repro_torch.core.merging import joint_grads
+    from repro_torch.models import vision as VI
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.utils.tree import flatten_paths, unflatten_paths
+
+    opt = AdamW(lr=lr)
+    flat = flatten_paths(params)
+    st = opt.init(flat)
+    # one model, each path its own key
+    bindings = {"m": {p: p for p in flat}}
+    loss_fns = {"m": lambda q, b: VI.small_cnn_loss(cfg, q, b)}
+    for step in range(steps):
+        _, grads = joint_grads(bindings, loss_fns, flat, {"m": stream.batch_at(step)})
+        with torch.no_grad():
+            flat, st = opt.update(grads, st, flat)
+    return unflatten_paths(flat)
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1005,6 +1403,13 @@ def main() -> int:
         for name, r in routes.items():
             route_totals[name].update(r)
         del eng  # the next family's start_phase frees this one's store
+    plan_launches, routes = stablelm_plan_phase(torch, stablelm_1_6b.full_config(), int(16e9))
+    launches.update(plan_launches)
+    for name, r in routes.items():
+        route_totals[name].update(r)
+    t0 = start_phase(torch, "small_cnn_retrain")
+    small_cnn_retrain_phase(torch)
+    emit("phase_end", name="small_cnn_retrain", seconds=time.perf_counter() - t0)
     assert all(launches[name] > 0 for name in main_rows), launches
 
     kernels = []

@@ -58,6 +58,27 @@ class LayerGroup:
                 cols[k].append(r)
         return cols
 
+    @property
+    def savings(self) -> int:
+        """bytes saved = leaf_bytes x (appearances - max per-model count):
+        the workload still needs one buffer per column."""
+        return sum(self.leaf_bytes * (len(c) - 1) for c in self.columns())
+
+    @property
+    def models(self) -> set:
+        return {r.model_id for r in self.records}
+
+    def drop_earliest_half(self) -> "LayerGroup":
+        """AIMD multiplicative decrease: drop the half of appearances closest
+        to the *start* of their models (they typically hold less memory and
+        are harder to share — §5.3)."""
+        ordered = sorted(self.records, key=lambda r: r.position)
+        return LayerGroup(self.signature, ordered[len(ordered) // 2:])
+
+    def without_models(self, model_ids: set) -> "LayerGroup":
+        return LayerGroup(self.signature,
+                          [r for r in self.records if r.model_id not in model_ids])
+
 
 def enumerate_groups(records: Iterable, min_appearances: int = 2) -> list:
     """Cluster records by signature; keep groups with >= min_appearances,
@@ -69,3 +90,19 @@ def enumerate_groups(records: Iterable, min_appearances: int = 2) -> list:
               if len(recs) >= min_appearances]
     groups.sort(key=lambda g: (-g.memory, g.signature))
     return groups
+
+
+def potential_savings(records: Iterable) -> dict:
+    """Fig 5 'Optimal': share every architecturally identical layer,
+    disregarding weights and accuracy.  Returns totals in bytes."""
+    records = list(records)
+    total = sum(r.bytes for r in records)
+    groups = enumerate_groups(records)
+    saved = sum(g.savings for g in groups)
+    return {
+        "total_bytes": total,
+        "saved_bytes": saved,
+        "merged_bytes": total - saved,
+        "fraction_saved": saved / total if total else 0.0,
+        "n_groups": len(groups),
+    }

@@ -1,5 +1,6 @@
 """ParamStore — the weight-unification substrate (the port of
-``repro.core.store``; placement and plan shipping wait for later slices).
+``repro.core.store`` on one device; mesh placement and per-shard epochs
+wait for the sharded bank).
 
 A store holds *physical* buffers (tensors) keyed by string ids; each model
 has a *binding map* ``{leaf_path: store_key}``.  Unmerged models bind every
@@ -9,7 +10,13 @@ member's weights (§5.3).
 
 :meth:`materialize` is a plain dict lookup, so every member of a group gets
 the SAME tensor object for a shared key: the bytes exist once on the device,
-and autograd would sum the members' gradients into that one buffer.
+and autograd sums the members' gradients into that one buffer (joint
+retraining, ``core.merging``, materializes leaf tensors through
+``materialize(..., buffers=)``).
+
+Plans round-trip cloud -> edge: :meth:`export_plan` builds a
+``MergePlan`` from the store's committed bindings, :meth:`apply_plan`
+replays one onto another store with a single epoch bump.
 
 Resident bytes = unique buffers, which is what merging saves.  Bindings
 change only at merge/unmerge time, so the serve loop reuses one tree per
@@ -35,17 +42,24 @@ def _private_key(model_id: str, path: str) -> str:
 class ParamStore:
     buffers: dict  # store_key -> tensor
     bindings: dict  # model_id -> {path: store_key}
-    epoch: int = 0  # bumped on every rebinding
+    epoch: int = 0  # bumped on every rebinding / buffer commit
     materializations: dict = dataclasses.field(default_factory=dict)
     _cache: dict = dataclasses.field(default_factory=dict, repr=False)
 
     # -- cache bookkeeping ----------------------------------------------------
 
     def bump_epoch(self) -> int:
-        """Invalidate every cached tree and bank (bindings changed)."""
+        """Invalidate every cached tree and bank (bindings or buffer values
+        changed)."""
         self.epoch += 1
         self._cache.clear()
         return self.epoch
+
+    def update_buffers(self, new: dict) -> None:
+        """Commit new buffer values (e.g. after joint retraining) and
+        invalidate cached trees that reference the old tensors."""
+        self.buffers.update(new)
+        self.bump_epoch()
 
     # -- construction ---------------------------------------------------------
 
@@ -78,7 +92,8 @@ class ParamStore:
             if len(col) < 2:
                 continue  # single appearance: nothing to share
             gid = f"{base}:c{ci}"
-            self.buffers[gid] = self.buffers[self.bindings[col[0].model_id][col[0].path]]
+            donor = col[0]
+            self.buffers[gid] = self.buffers[self.bindings[donor.model_id][donor.path]]
             for r in col:
                 old = self.bindings[r.model_id][r.path]
                 self.bindings[r.model_id][r.path] = gid
@@ -112,13 +127,119 @@ class ParamStore:
             if k not in live:
                 del self.buffers[k]
 
+    # -- plan round-trip (cloud -> edge) ---------------------------------------
+
+    def export_plan(self, groups: list, provenance: Optional[dict] = None,
+                    include_weights: bool = False,
+                    delta_base: Optional[dict] = None,
+                    quantize: bool = False):
+        """Build a serializable ``MergePlan`` from committed groups and the
+        store's *current* bindings: for each column actually bound to one
+        shared (non-private) key, record the key, the donor appearance
+        (``merge_group``'s rule: first record of the column) and the member
+        records.  Columns that no longer share are dropped — the plan
+        reflects store reality, not planner intent.  ``include_weights``
+        carries the shared-buffer values, so a retrained configuration
+        reproduces bitwise on a fresh store; ``delta_base`` (key -> value the
+        receiving edge holds) delta-encodes them, ``quantize`` ships changed
+        float buffers as int8 residuals."""
+        from repro_torch.core.policy import (
+            ColumnBinding, MergePlan, PlanGroup, encode_weights,
+        )
+
+        pgs = []
+        shared: list = []
+        for g in groups:
+            cols = []
+            for col in g.columns():
+                if len(col) < 2:
+                    continue
+                key = self.bindings[col[0].model_id][col[0].path]
+                if key == _private_key(col[0].model_id, col[0].path):
+                    continue  # not shared
+                if any(self.bindings[r.model_id][r.path] != key for r in col):
+                    continue  # column split since commit (revert/unmerge)
+                cols.append(ColumnBinding(key, (col[0].model_id, col[0].path), tuple(col)))
+                shared.append(key)
+            if cols:
+                pgs.append(PlanGroup(g.signature, tuple(cols)))
+        weights = (encode_weights(self, shared, base=delta_base, quantize=quantize)
+                   if include_weights else None)
+        return MergePlan(1, tuple(pgs), provenance or {}, weights)
+
+    def _plan_key_remap(self, plan) -> dict:
+        """A plan key may already exist in this store bound to a *different*
+        group's members (two disjoint same-architecture pairs merged by
+        independent plans): remap such a plan group's keys to a fresh ``~n``
+        base.  Keys whose current owners are all members of the plan's own
+        column stay as they are (re-apply / update of the same buffer)."""
+        owners: dict = {}
+        for mid, binding in self.bindings.items():
+            for path, key in binding.items():
+                owners.setdefault(key, set()).add((mid, path))
+        taken = set(self.buffers)
+        remap: dict = {}
+        for pg in plan.groups:
+            members_by_key = {c.key: {(r.model_id, r.path) for r in c.members}
+                              for c in pg.columns}
+            if not any(owners.get(k, set()) - members_by_key[k] for k in members_by_key):
+                taken.update(members_by_key)
+                continue
+            base = next(iter(members_by_key)).rsplit(":", 1)[0]
+            new_base = disambiguate_base(base, lambda p: any(k.startswith(p) for k in taken))
+            for k in members_by_key:
+                remap[k] = new_base + ":" + k.rsplit(":", 1)[1]
+                taken.add(remap[k])
+        return remap
+
+    def apply_plan(self, plan) -> list:
+        """Replay a ``MergePlan`` onto this store: stage every column rebind
+        (shared-key value = the carried weights, decoded onto the device of
+        the column's current buffer, else the recorded donor's buffer), then
+        commit with ONE epoch bump.  Nothing is mutated until every value is
+        staged, so a payload that fails to decode leaves the store as it
+        was.  Delta-encoded entries reconstruct against the buffer this
+        store holds under the same (post-remap) key."""
+        from repro_torch.core.policy import decode_weight
+
+        carried = plan.shared_weights or {}
+        remap = self._plan_key_remap(plan)
+        staged: list = []  # (key, value, [(model_id, path), ...])
+        for pg in plan.groups:
+            for col in pg.columns:
+                final = remap.get(col.key, col.key)
+                if col.key in carried:
+                    entry = carried[col.key]
+                    base = (self.buffers.get(final)
+                            if isinstance(entry, dict)
+                            and entry.get("kind", "full") != "full" else None)
+                    first = col.members[0]
+                    device = self.buffers[self.bindings[first.model_id][first.path]].device
+                    val = decode_weight(entry, base=base).to(device)
+                else:
+                    dm, dp = col.donor
+                    val = self.buffers[self.bindings[dm][dp]]
+                staged.append((final, val, [(r.model_id, r.path) for r in col.members]))
+        keys = []
+        for key, val, members in staged:
+            self.buffers[key] = val
+            for mid, mpath in members:
+                self.bindings[mid][mpath] = key
+            keys.append(key)
+        self._gc_unreferenced()
+        if keys:
+            self.bump_epoch()
+        return keys
+
     # -- materialisation ------------------------------------------------------
 
-    def materialize(self, model_id: str) -> dict:
+    def materialize(self, model_id: str, buffers: Optional[dict] = None) -> dict:
         """Nested params for one model; shared keys hand every member the
-        same tensor object."""
+        same tensor object.  ``buffers`` (key -> tensor) replaces the
+        store's own, e.g. leaf tensors that require grad in a joint step."""
+        buffers = self.buffers if buffers is None else buffers
         binding = self.bindings[model_id]
-        return unflatten_paths({p: self.buffers[k] for p, k in binding.items()})
+        return unflatten_paths({p: buffers[k] for p, k in binding.items()})
 
     def materialize_cached(self, model_id: str) -> dict:
         """Serve-path materialisation: the *same* tree object for a model

@@ -4,7 +4,10 @@
     CUDA tensor  -> the hand-written Hopper kernel (or the call raises)
 
 There is no fallback and no mode switch: a CUDA tensor never takes the plain
-version, so a kernel that does not build or launch fails loudly.  Every
+version, so a kernel that does not build or launch fails loudly.  The
+Hopper kernels have no backward (nor do the JAX package's Pallas kernels),
+so a CUDA call that autograd would record raises instead of returning a
+result cut from the graph (:func:`require_no_grad`).  Every
 dispatch bumps a per-op counter (as ``repro.kernels.ops`` does at trace
 time); each kernel wrapper separately counts the launches it makes.
 """
@@ -40,6 +43,17 @@ def dispatch_counts() -> dict:
     return dict(DISPATCH_COUNTS)
 
 
+def require_no_grad(name: str, *tensors) -> None:
+    """Raise if autograd would record this kernel call: grad mode is on and
+    an input requires grad.  A kernel's result has no ``grad_fn``, so
+    without this check every parameter before it would silently get no
+    gradient."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, and an input requires grad; "
+            "call it under torch.no_grad() (training through it needs a backward kernel)")
+
+
 def _on_cuda(t: torch.Tensor, name: str) -> bool:
     if t.device.type == "cuda":
         return True
@@ -52,6 +66,7 @@ def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None,
                     scale: Optional[float] = None):
     _count("flash_attention")
     if _on_cuda(q, "flash_attention"):
+        require_no_grad("flash_attention", q, k, v)
         return _flash_mod.flash_attention(q, k, v, causal=causal, window=window,
                                           scale=scale)
     return _ref.flash_attention_ref(q, k, v, causal=causal, window=window,
@@ -63,6 +78,7 @@ def decode_attention(q, k_cache, v_cache, lengths, scale: Optional[float] = None
     (int32 ``(B,)``); a row of length 0 gives exact zeros."""
     _count("decode_attention")
     if _on_cuda(q, "decode_attention"):
+        require_no_grad("decode_attention", q, k_cache, v_cache)
         return _decode_mod.decode_attention(q, k_cache, v_cache, lengths, scale=scale)
     return _ref.decode_attention_ref(q, k_cache, v_cache, lengths, scale=scale)
 
@@ -71,6 +87,7 @@ def page_gather(pool, page_table):
     """out[i] = pool[page_table[i]]: one paged-KV view per dispatch."""
     _count("page_gather")
     if _on_cuda(pool, "page_gather"):
+        require_no_grad("page_gather", pool)
         return _gather_mod.page_gather(pool, page_table)
     return _ref.page_gather_ref(pool, page_table)
 
@@ -83,6 +100,7 @@ def bank_matmul(x, w, b=None):
     stays bitwise identical to the per-member path."""
     _count("bank_matmul")
     if _on_cuda(w, "bank_matmul"):
+        require_no_grad("bank_matmul", x, w, b)
         return _bank_mod.bank_matmul(x, w, b)
     return _ref.bank_matmul_ref(x, w, b)
 
@@ -92,6 +110,7 @@ def rg_lru_scan(a, b, h0):
     (y, h_last) in float32.  Any S >= 1: the caller pads nothing."""
     _count("rg_lru_scan")
     if _on_cuda(a, "rg_lru_scan"):
+        require_no_grad("rg_lru_scan", a, b, h0)
         return _rg_lru_mod.rg_lru_scan(a, b, h0)
     return _ref.rg_lru_ref(a, b, h0)
 
@@ -102,6 +121,7 @@ def mamba_scan(dt, dtx, Bmat, Cmat, A, h0):
     caller pads nothing."""
     _count("mamba_scan")
     if _on_cuda(dt, "mamba_scan"):
+        require_no_grad("mamba_scan", dt, dtx, Bmat, Cmat, A, h0)
         return _mamba_mod.mamba_scan(dt, dtx, Bmat, Cmat, A, h0)
     return _ref.mamba_scan_ref(dt, dtx, Bmat, Cmat, A, h0)
 

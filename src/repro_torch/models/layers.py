@@ -247,3 +247,27 @@ def unembed(x: torch.Tensor, table_or_head: torch.Tensor, transpose: bool):
         out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
         return out.reshape(*x.shape[:-1], w.shape[-1])
     return torch.matmul(x.float(), w.float())
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          valid_vocab: Optional[int] = None,
+                          mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token cross-entropy; padded vocab ids masked out of the
+    partition by adding float32's lowest value to their logits."""
+    logits = logits.float()
+    V = logits.shape[-1]
+    if valid_vocab is not None and valid_vocab < V:
+        neg = torch.full((V - valid_vocab,), torch.finfo(torch.float32).min,
+                         device=logits.device)
+        logits = logits + torch.cat([torch.zeros(valid_vocab, device=logits.device), neg])
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

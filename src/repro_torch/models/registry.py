@@ -1,22 +1,39 @@
 """MergeableAdapter — the merge pipeline's model-facing contract (the port
-of ``repro.models.registry``, split-serve tier).
+of ``repro.models.registry``: the merge, split-serve and decode tiers, and
+the calibration tier of small_cnn and dense; the ssm and hybrid calibration
+tiers wait for a later slice).
 
-Everything the store and the serving engine need from a model family is
-behind one interface:
+Everything the planner, the store and the serving engine need from a model
+family is behind one interface:
 
     a = get_adapter("small_cnn")
-    recs  = a.records(cfg, params, model_id)   # signature extraction
-    split = a.split(cfg)                       # prefix/suffix serving
-    ds = a.decode_split(cfg)                   # paged streaming decode
+    recs  = a.records(cfg, params, model_id)        # signature extraction
+    acts  = a.layer_activations(cfg, params, batch) # CKA calibration taps
+    reg   = a.registered(cfg, model_id, seed)       # planner retraining
+    split = a.split(cfg)                            # prefix/suffix serving
+    ds = a.decode_split(cfg)                        # paged streaming decode
+
+Where the JAX package takes a PRNG key, the calibration tier takes a seed
+or a ``torch.Generator`` (whose device the batches are drawn on).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, Optional, Union
+
+import torch
 
 from repro_torch.core.signatures import records_from_params
 from repro_torch.models import griffin, ssm, transformer, vision
-from repro_torch.utils.tree import dtype_name, flatten_paths
+from repro_torch.utils.device import resolve_device
+from repro_torch.utils.tree import dtype_name, flatten_paths, torch_dtype
+
+
+def _generator(key: Union[int, torch.Generator], device=None) -> torch.Generator:
+    """A seed becomes a generator on ``device``; a generator passes through."""
+    if isinstance(key, torch.Generator):
+        return key
+    return torch.Generator(device=resolve_device(device)).manual_seed(int(key))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,9 +90,17 @@ class DecodeSplit:
 
 
 class MergeableAdapter:
-    """One model family's view of the merge pipeline."""
+    """One model family's view of the merge pipeline.
+
+    Capability tiers: **merge** (every adapter: ``records``), **calibrate**
+    (``can_calibrate``: ``calibration_batch`` + ``layer_activations`` for
+    the CKA scorer, ``loss``/``accuracy`` for retraining through
+    ``registered``), **split-serve** (``can_split``) and **decode-serve**
+    (``can_decode``)."""
 
     name: str = "adapter"
+    family: Optional[str] = None  # mixed-zoo trunk eligibility (core.policy)
+    can_calibrate: bool = False
     can_split: bool = False
     can_decode: bool = False
 
@@ -91,9 +116,61 @@ class MergeableAdapter:
     def forward(self, cfg, params, x):
         raise NotImplementedError(f"{self.name}: no forward bound")
 
+    def loss(self, cfg, params, batch):
+        raise NotImplementedError(f"{self.name}: no loss bound")
+
+    def forward_batch(self, cfg, params, batch: dict):
+        """Logits for a calibration batch in the family's batch layout."""
+        return self.forward(cfg, params, batch["tokens"])
+
+    def accuracy(self, cfg, params, batch):
+        """Argmax-vs-labels accuracy over the real vocab (masked rows out)."""
+        logits = self.forward_batch(cfg, params, batch)
+        vocab = getattr(cfg, "vocab_size", None)
+        if vocab:
+            logits = logits[..., :vocab]
+        correct = (logits.argmax(-1) == batch["labels"]).float()
+        mask = batch.get("mask")
+        if mask is not None:
+            return torch.sum(correct * mask) / torch.clamp(torch.sum(mask), min=1.0)
+        return torch.mean(correct)
+
     def records(self, cfg, params, model_id: str) -> list:
         """LayerRecords for grouping (kind-from-path, shape, dtype)."""
         return records_from_params(params, model_id)
+
+    # -- calibrate ------------------------------------------------------------
+
+    def calibration_batch(self, cfg, key, n: int) -> dict:
+        """A synthetic batch usable by ``loss``/``accuracy``/
+        ``layer_activations`` — run the SAME batch through every candidate
+        model so CKA compares responses to identical inputs."""
+        raise NotImplementedError(f"{self.name}: no calibration support")
+
+    def layer_activations(self, cfg, params, batch: dict) -> dict:
+        """{layer_key: (N, ...) float32 numpy} where ``layer_key`` is the
+        param-path prefix ``core.policy.default_layer_key`` maps record
+        paths onto."""
+        raise NotImplementedError(f"{self.name}: no calibration support")
+
+    def registered(self, cfg, model_id: str, key, n_batches: int = 2,
+                   batch_size: int = 8, accuracy_target: float = 0.9,
+                   original_accuracy: Optional[float] = None, device=None):
+        """A ``RegisteredModel`` whose loss/accuracy/data all come from this
+        adapter — what makes ``StagedPlanner`` + ``MergeTrainer`` retraining
+        family-agnostic.  ``key`` is a seed (drawn on ``device``) or a
+        generator."""
+        from repro_torch.core.validation import RegisteredModel
+
+        gen = _generator(key, device)
+        train = [self.calibration_batch(cfg, gen, batch_size) for _ in range(n_batches)]
+        val = self.calibration_batch(cfg, gen, batch_size)
+        return RegisteredModel(
+            model_id,
+            lambda p, b: self.loss(cfg, p, b),
+            lambda p, b: self.accuracy(cfg, p, b),
+            lambda epoch: train, val, accuracy_target, original_accuracy,
+        )
 
     def eval_params(self, cfg):
         """Parameter tree of ``meta`` tensors — paths, shapes and dtypes
@@ -158,6 +235,8 @@ class SmallCNNAdapter(MergeableAdapter):
     """The paper's reduced-scale vision models."""
 
     name = "small_cnn"
+    family = "small_cnn"
+    can_calibrate = True
     can_split = True
 
     def default_config(self):
@@ -169,6 +248,29 @@ class SmallCNNAdapter(MergeableAdapter):
 
     def forward(self, cfg, params, x):
         return vision.small_cnn_forward(cfg, params, x)
+
+    def loss(self, cfg, params, batch):
+        return vision.small_cnn_loss(cfg, params, batch)
+
+    def accuracy(self, cfg, params, batch):
+        return vision.small_cnn_accuracy(cfg, params, batch)
+
+    def calibration_batch(self, cfg, key, n: int) -> dict:
+        gen = _generator(key)
+        dev = gen.device
+        batch = {"images": torch.randn((n, 32, 32, 3), generator=gen, device=dev
+                                       ).to(torch_dtype(cfg.dtype))}
+        if cfg.task == "classification":
+            batch["labels"] = torch.randint(0, cfg.n_classes, (n,), generator=gen, device=dev)
+        else:
+            g, A = 32 // (2 ** (cfg.n_stages - 1)), cfg.n_anchors
+            batch["cls_targets"] = torch.randint(0, cfg.n_classes, (n, g, g, A),
+                                                 generator=gen, device=dev)
+            batch["loc_targets"] = torch.randn((n, g, g, A * 4), generator=gen, device=dev)
+        return batch
+
+    def layer_activations(self, cfg, params, batch: dict) -> dict:
+        return vision.small_cnn_layer_activations(cfg, params, batch["images"])
 
     def _build_split(self, cfg) -> PrefixSplit:
         ep = self.eval_params(cfg)
@@ -204,6 +306,14 @@ class _TokenLMAdapter(MergeableAdapter):
     def forward(self, cfg, params, x):
         """tokens (B, S) -> logits (B, S, V), composed as ``head(trunk(x))``."""
         return self.module.forward(cfg, params, x)
+
+    def calibration_batch(self, cfg, key, n: int, seq: int = 8) -> dict:
+        """One layout for every token LM, so CKA compares every candidate's
+        response to identical inputs."""
+        gen = _generator(key)
+        toks = torch.randint(0, cfg.vocab_size, (n, seq + 1), generator=gen,
+                             device=gen.device, dtype=torch.int32)
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
     def _build_split(self, cfg) -> PrefixSplit:
         mod = self.module
@@ -268,8 +378,16 @@ class DenseLMAdapter(_TokenLMAdapter):
     """Dense decoder-only transformers with per-layer blocks."""
 
     name = "dense"
+    family = "dense"
+    can_calibrate = True
     module = transformer
     init_pool_fn = staticmethod(transformer.init_kv_pool)
+
+    def loss(self, cfg, params, batch):
+        return transformer.loss_fn(cfg, params, batch)
+
+    def layer_activations(self, cfg, params, batch: dict) -> dict:
+        return transformer.layer_activations(cfg, params, batch["tokens"])
 
     def default_config(self):
         return transformer.DenseLMConfig(
@@ -286,6 +404,7 @@ class SSMAdapter(_TokenLMAdapter):
     request's FIRST page slot of the state pool."""
 
     name = "ssm"
+    family = "ssm"
     module = ssm
     init_pool_fn = staticmethod(ssm.init_state_pool)
 
@@ -306,6 +425,7 @@ class GriffinAdapter(_TokenLMAdapter):
     pool; decode attends over the ring in plain torch."""
 
     name = "hybrid"
+    family = "hybrid"
     module = griffin
     init_pool_fn = staticmethod(griffin.init_state_pool)
 

@@ -127,19 +127,33 @@ def _qkv(cfg: DenseLMConfig, p_attn: dict, x: torch.Tensor, positions: torch.Ten
     return q, k, v
 
 
-def _block(cfg: DenseLMConfig, p: dict, x: torch.Tensor,
-           positions: torch.Tensor) -> torch.Tensor:
+def _block(cfg: DenseLMConfig, p: dict, x: torch.Tensor, positions: torch.Tensor,
+           taps: Optional[dict] = None, tap_prefix: str = "") -> torch.Tensor:
     """Full-sequence block over contiguous positions; attention through
     ``ops.flash_attention``.  A non-parametric norm has no leaves, so its
     empty dict does not survive a flat-path round trip (store, bridge):
-    norms are looked up with ``.get``."""
+    norms are looked up with ``.get``.
+
+    ``taps``, when given, collects each sub-layer's response keyed by the
+    param-path prefix that produces it ("blocks/0/attn", "blocks/0/mlp",
+    ...); parameter-free norms get no tap (no record path maps onto them)."""
     h = L.apply_norm(cfg.norm, x, p.get("ln1", {}))
+    if taps is not None and p.get("ln1"):
+        taps[tap_prefix + "ln1"] = h
     q, k, v = _qkv(cfg, p["attn"], h, positions)
     attn = kops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                 causal=True, window=cfg.window)
-    x = x + L.dense(attn.reshape(x.shape[0], x.shape[1], -1), p["attn"]["wo"])
+    a = L.dense(attn.reshape(x.shape[0], x.shape[1], -1), p["attn"]["wo"])
+    if taps is not None:
+        taps[tap_prefix + "attn"] = a
+    x = x + a
     h = L.apply_norm(cfg.norm, x, p.get("ln2", {}))
-    return x + L.ffn(h, p["mlp"], act=cfg.act, gated=cfg.gated_ffn)
+    if taps is not None and p.get("ln2"):
+        taps[tap_prefix + "ln2"] = h
+    ff = L.ffn(h, p["mlp"], act=cfg.act, gated=cfg.gated_ffn)
+    if taps is not None:
+        taps[tap_prefix + "mlp"] = ff
+    return x + ff
 
 
 def _softcap(cfg: DenseLMConfig, logits: torch.Tensor) -> torch.Tensor:
@@ -148,31 +162,59 @@ def _softcap(cfg: DenseLMConfig, logits: torch.Tensor) -> torch.Tensor:
     return torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
 
 
-def trunk(cfg: DenseLMConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+def trunk(cfg: DenseLMConfig, params: dict, tokens: torch.Tensor,
+          taps: Optional[dict] = None) -> torch.Tensor:
     """Embedding + transformer blocks — the mergeable *prefix*.  Returns
-    pre-final-norm hidden states (B, S, d)."""
+    pre-final-norm hidden states (B, S, d).  ``taps`` collects per-layer
+    probes keyed by param-path prefix (see :func:`_block`)."""
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
     x = L.embed(tokens, params["embed"]["table"])
+    if taps is not None:
+        taps["embed"] = x
     for i in range(cfg.n_layers):
-        x = _block(cfg, params["blocks"][str(i)], x, positions)
+        x = _block(cfg, params["blocks"][str(i)], x, positions, taps=taps,
+                   tap_prefix=f"blocks/{i}/")
     return x
 
 
-def head(cfg: DenseLMConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+def head(cfg: DenseLMConfig, params: dict, x: torch.Tensor,
+         taps: Optional[dict] = None) -> torch.Tensor:
     """Final norm + unembedding — the private *suffix*.  float32 logits."""
-    x = L.apply_norm(cfg.norm, x, params.get("final_norm", {}))
+    fn = params.get("final_norm", {})
+    x = L.apply_norm(cfg.norm, x, fn)
+    if taps is not None and fn:
+        taps["final_norm"] = x
     if cfg.tie_embeddings:
         logits = L.unembed(x, params["embed"]["table"], transpose=True)
     else:
         logits = L.unembed(x, params["lm_head"]["w"], transpose=False)
-    return _softcap(cfg, logits)
+    logits = _softcap(cfg, logits)
+    if taps is not None and not cfg.tie_embeddings:
+        taps["lm_head"] = logits
+    return logits
 
 
 def forward(cfg: DenseLMConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, padded_vocab) float32.  Composed as
     ``head(trunk(x))`` so the serving split is bitwise identical to it."""
     return head(cfg, params, trunk(cfg, params, tokens))
+
+
+def loss_fn(cfg: DenseLMConfig, params: dict, batch: dict) -> torch.Tensor:
+    logits = forward(cfg, params, batch["tokens"])
+    return L.softmax_cross_entropy(logits, batch["labels"], valid_vocab=cfg.vocab_size,
+                                   mask=batch.get("mask"))
+
+
+@torch.no_grad()
+def layer_activations(cfg: DenseLMConfig, params: dict, tokens: torch.Tensor) -> dict:
+    """Calibration-batch activations for every layer, keyed by param-path
+    prefix, as float32 numpy on the host — the probes the
+    representation-similarity scorer consumes."""
+    taps: dict = {}
+    head(cfg, params, trunk(cfg, params, tokens, taps=taps), taps=taps)
+    return {k: v.float().cpu().numpy() for k, v in taps.items()}
 
 
 # ---------------------------------------------------------------------------

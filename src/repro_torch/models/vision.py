@@ -1,6 +1,7 @@
 """Runnable small CNNs for GEMEL's vision experiments — the port of the
 small_cnn half of ``repro.models.vision`` (the layer-spec descriptor zoo
-waits for a later slice).
+waits for a later slice): forward, the trunk/head serving split, loss,
+accuracy and the calibration taps.
 
 Images are NHWC and conv weights HWIO at the API, as in the JAX package;
 the permute to PyTorch's NCHW / OIHW happens inside :func:`_conv`, and the
@@ -10,6 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -102,20 +104,32 @@ def _conv(x: torch.Tensor, p: dict, stride: int = 1) -> torch.Tensor:
     return y
 
 
-def small_cnn_features(cfg: SmallCNNConfig, params: dict,
-                       images: torch.Tensor) -> torch.Tensor:
+def small_cnn_features(cfg: SmallCNNConfig, params: dict, images: torch.Tensor,
+                       taps: Optional[dict] = None) -> torch.Tensor:
     """Trunk (stem + stages) — the *prefix* the serving engine runs once per
-    micro-batch when the trunk's weights are merged across models."""
+    micro-batch when the trunk's weights are merged across models.
+    ``taps``, when given, collects each layer's response keyed by param-path
+    prefix ("stem", "stage0/0/conv1", ...): post-relu for stem/conv1, the
+    raw conv output for conv2/proj (pre-residual, pre-relu) — what changes
+    when THAT layer's weights are swapped."""
     x = torch.relu(_conv(images, params["stem"]))
+    if taps is not None:
+        taps["stem"] = x
     for s in range(cfg.n_stages):
         for d in range(cfg.depth):
             p = params[f"stage{s}"][str(d)]
             stride = 2 if d == 0 and s > 0 else 1
-            h = _conv(torch.relu(_conv(x, p["conv1"], stride)), p["conv2"])
+            h1 = torch.relu(_conv(x, p["conv1"], stride))
+            h = _conv(h1, p["conv2"])
+            if taps is not None:
+                taps[f"stage{s}/{d}/conv1"] = h1
+                taps[f"stage{s}/{d}/conv2"] = h
             if cfg.family == "resnet":
                 sc = x
                 if "proj" in p:
                     sc = _conv(sc, p["proj"], stride)
+                    if taps is not None:
+                        taps[f"stage{s}/{d}/proj"] = sc
                 elif stride != 1:
                     sc = sc[:, ::stride, ::stride, :]
                 h = h + sc
@@ -123,21 +137,69 @@ def small_cnn_features(cfg: SmallCNNConfig, params: dict,
     return x
 
 
-def small_cnn_head(cfg: SmallCNNConfig, params: dict, feats: torch.Tensor) -> torch.Tensor:
+def small_cnn_head(cfg: SmallCNNConfig, params: dict, feats: torch.Tensor,
+                   taps: Optional[dict] = None) -> torch.Tensor:
     """Task head over trunk features — the private *suffix*."""
     if cfg.task == "classification":
         feat = feats.mean(dim=(1, 2))
         h = torch.relu(feat @ params["head"]["fc1"]["w"] + params["head"]["fc1"]["b"])
-        return h @ params["head"]["fc2"]["w"] + params["head"]["fc2"]["b"]
+        out = h @ params["head"]["fc2"]["w"] + params["head"]["fc2"]["b"]
+        if taps is not None:
+            taps["head/fc1"], taps["head/fc2"] = h, out
+        return out
     h = torch.relu(_conv(feats, params["head"]["conv"]))
-    return torch.cat([_conv(h, params["head"]["loc"]),
-                      _conv(h, params["head"]["conf"])], dim=-1)
+    loc = _conv(h, params["head"]["loc"])
+    conf = _conv(h, params["head"]["conf"])
+    if taps is not None:
+        taps["head/conv"], taps["head/loc"], taps["head/conf"] = h, loc, conf
+    return torch.cat([loc, conf], dim=-1)
+
+
+@torch.no_grad()
+def small_cnn_layer_activations(cfg: SmallCNNConfig, params: dict,
+                                images: torch.Tensor) -> dict:
+    """Calibration-batch activations for every layer, keyed by param-path
+    prefix, as float32 numpy on the host — the probes the
+    representation-similarity scorer consumes.  Run the same ``images``
+    through every candidate model so similarities compare responses to
+    identical inputs."""
+    taps: dict = {}
+    small_cnn_head(cfg, params, small_cnn_features(cfg, params, images, taps=taps), taps=taps)
+    return {k: v.float().cpu().numpy() for k, v in taps.items()}
 
 
 def small_cnn_forward(cfg: SmallCNNConfig, params: dict, images: torch.Tensor):
     """images (B, 32, 32, 3).  Classification: logits (B, n_classes).
     Detection: (B, H', W', n_anchors*(4+n_classes)) dense predictions."""
     return small_cnn_head(cfg, params, small_cnn_features(cfg, params, images))
+
+
+def small_cnn_loss(cfg: SmallCNNConfig, params: dict, batch: dict) -> torch.Tensor:
+    out = small_cnn_forward(cfg, params, batch["images"])
+    if cfg.task == "classification":
+        logp = torch.log_softmax(out.float(), dim=-1)
+        return -torch.mean(logp.gather(-1, batch["labels"][:, None].long()))
+    # detection: smooth-L1 on loc + CE on conf against dense targets
+    A = cfg.n_anchors
+    loc, conf = out[..., :4 * A], out[..., 4 * A:]
+    B, H, W, _ = conf.shape
+    logp = torch.log_softmax(conf.reshape(B, H, W, A, cfg.n_classes).float(), dim=-1)
+    ce = -torch.mean(logp.gather(-1, batch["cls_targets"][..., None].long()))
+    diff = loc.float() - batch["loc_targets"]
+    l1 = torch.where(diff.abs() < 1.0, 0.5 * diff * diff, diff.abs() - 0.5)
+    return ce + torch.mean(l1)
+
+
+def small_cnn_accuracy(cfg: SmallCNNConfig, params: dict, batch: dict) -> torch.Tensor:
+    """Classification: top-1.  Detection: per-cell argmax agreement."""
+    out = small_cnn_forward(cfg, params, batch["images"])
+    if cfg.task == "classification":
+        return torch.mean((out.argmax(-1) == batch["labels"]).float())
+    A = cfg.n_anchors
+    conf = out[..., 4 * A:]
+    B, H, W, _ = conf.shape
+    pred = conf.reshape(B, H, W, A, cfg.n_classes).argmax(-1)
+    return torch.mean((pred == batch["cls_targets"]).float())
 
 
 def small_cnn_prefix_paths(cfg: SmallCNNConfig, params: dict) -> frozenset:

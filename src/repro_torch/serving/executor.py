@@ -1,7 +1,7 @@
 """The merge-aware serving engine (the port of ``repro.serving.executor``:
-``MergeAwareEngine`` with its shared prefix, suffix bank and streaming
-decode lane; the per-request ``EdgeExecutor``, hot plan swap and the
-sharded bank wait for later slices).
+``MergeAwareEngine`` with its shared prefix, suffix bank, streaming decode
+lane and hot MergePlan swap; the per-request ``EdgeExecutor``, the drift
+``revert`` and the sharded bank wait for later slices).
 
 PyTorch runs eagerly, so there is nothing to compile: where the JAX engine
 blocks on ``jax.block_until_ready`` this one synchronises the device that
@@ -22,8 +22,9 @@ import torch
 
 from repro_torch.core.store import ParamStore
 from repro_torch.serving.costs import PCIE_GBPS
-from repro_torch.serving.scheduler import Scheduler
+from repro_torch.serving.scheduler import Instance, Scheduler
 from repro_torch.serving.workload import deadline_microbatches, pad_stack
+from repro_torch.utils.tree import leaf_bytes
 
 
 IDLE_SLEEP_S = 2e-4  # back-off when every queue is empty and not draining
@@ -43,6 +44,13 @@ class Request:
     arrival_s: float
     deadline_s: float
     meta: Any = None  # opaque caller tag
+
+
+class PlanApplyError(RuntimeError):
+    """A hot plan swap failed mid-flight.  The engine guarantees the store
+    was rolled back to its pre-swap buffers/bindings with exactly ONE epoch
+    bump and no queued request dropped; callers keep serving the prior
+    plan."""
 
 
 def drop_expired(queues: dict, now: float) -> int:
@@ -284,6 +292,64 @@ class MergeAwareEngine:
         self._groups = groups
         self._groups_epoch = self.store.epoch
         return groups
+
+    # -- hot plan swap ---------------------------------------------------------
+
+    def rebind_instances(self) -> dict:
+        """Rebuild scheduler instances from the store's CURRENT bindings
+        (cost id and accuracy carried over per instance) and swap them in
+        via ``Scheduler.rebind``, which keeps residency for surviving keys."""
+        kb_by_model: dict = {}  # store model -> {key: bytes}, computed once
+        insts = []
+        for iid, inst in self.scheduler.instances.items():
+            mid = self.programs[iid].model_id
+            if mid not in kb_by_model:
+                kb_by_model[mid] = {k: leaf_bytes(self.store.buffers[k])
+                                    for k in self.store.keys_for(mid)}
+            kb = kb_by_model[mid]
+            insts.append(Instance(iid, inst.model_id, frozenset(kb), kb, inst.accuracy))
+        return self.scheduler.rebind(insts)
+
+    def apply_plan(self, plan) -> dict:
+        """Apply a MergePlan on the LIVE engine:
+
+        1. ``ParamStore.apply_plan`` stages every column rebind and commits
+           with a *single* epoch bump — the prefix-group plan, every cached
+           tree and every bank invalidate exactly once;
+        2. scheduler instances are rebuilt from the post-plan bindings and
+           swapped in via ``Scheduler.rebind``;
+        3. queues are untouched — queued requests are served against the new
+           bindings on the next pass (``serve`` re-reads ``prefix_groups()``
+           every iteration).
+
+        The swap is atomic under failure: the engine snapshots buffers and
+        bindings up front; on any failure it restores both wholesale,
+        settles the epoch at exactly ONE bump past the pre-swap value,
+        rebinds the scheduler from the restored bindings, and raises
+        :class:`PlanApplyError`.  No queued request is dropped."""
+        epoch0 = self.store.epoch
+        buffers0 = dict(self.store.buffers)
+        bindings0 = {m: dict(b) for m, b in self.store.bindings.items()}
+        try:
+            shared = self.store.apply_plan(plan)
+        except Exception as exc:  # any failure rolls the whole swap back
+            self.store.buffers.clear()
+            self.store.buffers.update(buffers0)
+            self.store.bindings.clear()
+            self.store.bindings.update(bindings0)
+            if self.store.epoch == epoch0:
+                self.store.bump_epoch()  # one bump total for the failed swap
+            else:
+                self.store._cache.clear()  # already bumped: just invalidate
+            self.rebind_instances()
+            raise PlanApplyError(f"plan swap failed and was rolled back: {exc}") from exc
+        rebind = self.rebind_instances()
+        return {
+            "shared_keys": shared,
+            "epoch_bumps": self.store.epoch - epoch0,
+            "pending_requests": sum(len(q) for q in self.queues.values()),
+            **rebind,
+        }
 
     # -- queue plumbing --------------------------------------------------------
 

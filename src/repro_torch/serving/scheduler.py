@@ -134,6 +134,31 @@ class Scheduler:
             "resident_bytes": self.mem.used_bytes,
         }
 
+    def rebind(self, instances: list) -> dict:
+        """Swap the instance table for plan-rebuilt Instances (a live
+        MergePlan application changed the store-key sets) WITHOUT resetting
+        residency: keys still referenced by some instance stay resident, so
+        the next loads pay only the plan's incremental bytes; keys no longer
+        referenced are dropped.  Round-robin order is recomputed
+        merging-aware over the new key sets."""
+        self.instances = {i.instance_id: i for i in instances}
+        self.order = merging_aware_order(instances)
+        live = {k for i in instances for k in i.keys}
+        dropped = [k for k in self.mem.resident if k not in live]
+        for k in dropped:
+            self.mem.resident.pop(k, None)
+            self.mem.owners.pop(k, None)
+        known = set(self.instances)
+        self.mem.lru = [iid for iid in self.mem.lru if iid in known]
+        for k, users in list(self.mem.owners.items()):
+            # keep only live instances whose NEW key set still includes k
+            users.intersection_update(iid for iid in known if k in self.instances[iid].keys)
+            if not users:
+                # unowned residuals stay resident (evictable later); only the
+                # owners table entry goes
+                self.mem.owners.pop(k)
+        return {"resident_bytes": self.mem.used_bytes, "dropped_keys": len(dropped)}
+
     def peek_load_bytes(self, instance_id: str) -> int:
         """Incremental bytes a load of ``instance_id`` would transfer right
         now, WITHOUT mutating residency/LRU state (sizes a prefetch)."""

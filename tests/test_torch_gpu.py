@@ -698,3 +698,95 @@ def test_merged_tied_hybrid_group_streams_on_the_card_against_the_plain_path(cud
         assert len(rows) == len(c.tokens) == 8
         for row, got in zip(rows, c.logits):
             torch.testing.assert_close(torch.from_numpy(got), row, **TOL["float32"])
+
+
+@pytest.mark.gpu
+def test_flash_attention_refuses_a_call_autograd_would_record(cuda_device):
+    """The kernel has no backward: under grad with an input that requires
+    grad the call raises instead of returning a result cut from the graph;
+    under ``torch.no_grad()`` it launches."""
+    rnd = _rnd(cuda_device, "bfloat16", 21)
+    q, k, v = rnd(1, 16, 2, 64), rnd(1, 16, 2, 64), rnd(1, 16, 2, 64)
+    q.requires_grad_(True)
+    before = ops.kernel_launches()["flash_attention"]
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_attention(q, k, v)
+    assert ops.kernel_launches()["flash_attention"] == before
+    with torch.no_grad():
+        out = ops.flash_attention(q, k, v)
+    assert ops.kernel_launches()["flash_attention"] == before + 1
+    assert out.grad_fn is None
+    torch.testing.assert_close(out.float(), tref.flash_attention_ref(
+        q.detach(), k, v).float(), **TOL["bfloat16"])
+
+
+def _small_cnn_pair(device):
+    from repro_torch.core import ParamStore, enumerate_groups
+    from repro_torch.models.registry import get_adapter
+
+    adapter = get_adapter("small_cnn")
+    cfg = adapter.default_config()
+    mids = ("A", "B")
+    store = ParamStore.from_models({m: adapter.init(cfg, seed=i, device=device)
+                                    for i, m in enumerate(mids)})
+    trunk = adapter.split(cfg).prefix_paths
+    recs = [r for m in mids for r in adapter.records(cfg, store.materialize(m), m)
+            if r.path in trunk]
+    return adapter, cfg, mids, store, enumerate_groups(recs)
+
+
+@pytest.mark.gpu
+def test_plan_applies_on_a_cuda_store(cuda_device):
+    from repro_torch.core import MergePlan
+
+    adapter, cfg, mids, cloud, groups = _small_cnn_pair(cuda_device)
+    for g in groups:
+        cloud.merge_group(g)
+    payload = cloud.export_plan(groups, include_weights=True).to_json()
+    edge = _small_cnn_pair(cuda_device)[3]
+    keys = edge.apply_plan(MergePlan.from_json(payload))
+    assert edge.epoch == 1 and edge.bindings == cloud.bindings
+    assert keys and set(keys) == cloud.shared_keys()
+    for k in keys:
+        assert edge.buffers[k].is_cuda and torch.equal(edge.buffers[k], cloud.buffers[k])
+
+
+@pytest.mark.gpu
+def test_merge_trainer_sums_shared_gradients_on_the_card(cuda_device):
+    from repro_torch.core import MergeTrainer
+    from repro_torch.core.merging import joint_grads
+    from repro_torch.train.optimizer import AdamW
+
+    torch.backends.cudnn.allow_tf32 = False
+    adapter, cfg, mids, store, groups = _small_cnn_pair(cuda_device)
+    for g in groups:
+        store.merge_group(g)
+    regs = [adapter.registered(cfg, m, 10 + i, device=cuda_device, accuracy_target=0.0)
+            for i, m in enumerate(mids)]
+    bindings = {m: dict(store.bindings[m]) for m in mids}
+    keys = sorted({k for b in bindings.values() for k in b.values()})
+    buffers = {k: store.buffers[k] for k in keys}
+    loss_fns = {r.model_id: r.loss_fn for r in regs}
+    batches = {r.model_id: r.train_batches(0)[0] for r in regs}
+    _, grads = joint_grads(bindings, loss_fns, buffers, batches)
+    per = {m: joint_grads({m: bindings[m]}, loss_fns, buffers, batches)[1] for m in mids}
+    for k in store.shared_keys():
+        summed = per["A"][k] + per["B"][k]
+        assert grads[k].is_cuda
+        assert (2 * grads[k] - summed).abs().max() <= 1e-5 * summed.abs().max()
+    before = {k: store.buffers[k].clone() for k in store.shared_keys()}
+    res = MergeTrainer(optimizer=AdamW(lr=1e-3), max_epochs=1).train(store, regs)
+    assert res.success and res.epochs_used == 1
+    assert all(not torch.equal(store.buffers[k], v) for k, v in before.items())
+
+
+@pytest.mark.gpu
+def test_wire_codec_round_trips_a_cuda_bf16_tensor(cuda_device):
+    from repro_torch.core.signatures import decode_weight_entry, encode_weight_entry
+
+    t = _rnd(cuda_device, "bfloat16", 22)(33, 17)
+    entry = encode_weight_entry(t)
+    assert entry["dtype"] == "bfloat16" and entry["kind"] == "full"
+    back = decode_weight_entry(entry)
+    assert back.dtype == torch.bfloat16 and torch.equal(back.to(cuda_device), t)
+    assert encode_weight_entry(t, base=t.clone())["kind"] == "same"
