@@ -16,6 +16,7 @@ from repro_torch.core.policy import (
 from repro_torch.core.signatures import (
     LayerRecord,
     records_from_params,
+    records_from_spec,
     signature_match_fraction,
 )
 from repro_torch.core.store import ParamStore
@@ -26,6 +27,6 @@ __all__ = [
     "ParamStore", "RegisteredModel", "RepresentationSimilarityScorer",
     "IncrementalMerger", "MergeEvent", "MergePlan", "MergeResult",
     "MergeTrainer", "PlanResult", "StagedPlanner", "enumerate_groups",
-    "potential_savings", "records_from_params", "signature_match_fraction",
+    "potential_savings", "records_from_params", "records_from_spec", "signature_match_fraction",
     "meets_targets", "stable_group_id", "validate",
 ]

@@ -1,5 +1,6 @@
-"""Pluggable merge-policy subsystem (the port of ``repro.core.policy``; the
-simulator-in-the-loop ``objective=`` waits for the simulator's port).
+"""Pluggable merge-policy subsystem (the port of ``repro.core.policy``; an
+``objective=`` such as ``serving.simulator.effective_accuracy_objective``
+puts the simulator in the loop).
 
 The §5.3 search is decomposed into explicit stages driven by a
 :class:`StagedPlanner`:
@@ -376,6 +377,7 @@ class MergeEvent:
     cumulative_saved: int
     shipped_bytes: int  # weights shipped to the edge for this update
     accuracies: dict
+    objective: Optional[float] = None  # simulator-in-the-loop score, if set
 
 
 @dataclasses.dataclass
@@ -407,10 +409,12 @@ class StagedPlanner:
        training, ``scorer.order`` ranks the survivors;
     3. **attempt** — take the next group, rebind it shared, retrain jointly
        (``core.merging.MergeTrainer`` or an injected surrogate);
-    4. **commit/rollback** — on trainer success the weights stay; otherwise
-       roll back and AIMD-shrink: prune early-failed models if reported,
-       else halve dropping earliest-position appearances, and retry while
-       the remainder still out-ranks the next candidate.
+    4. **commit/rollback** — on trainer success (and, when an ``objective``
+       is set, no regression of its score) the
+       weights stay; otherwise roll back and AIMD-shrink: prune
+       early-failed models if reported, else halve dropping earliest-position
+       appearances, and retry while the remainder still out-ranks the next
+       candidate.
 
     Timing is injectable (``clock=``) so event traces are deterministic
     under test.  The result carries a :class:`MergePlan`
@@ -424,6 +428,7 @@ class StagedPlanner:
         trainer=None,  # object with .train(store, models) -> MergeResult
         min_group_bytes: int = 1,
         scorer: Optional[CandidateScorer] = None,
+        objective: Optional[Callable] = None,  # (store, groups) -> float
         clock: Callable[[], float] = time.monotonic,
         plan_weights: bool = True,
     ):
@@ -433,6 +438,7 @@ class StagedPlanner:
         self.trainer = trainer
         self.min_group_bytes = min_group_bytes
         self.scorer = scorer or MemoryForwardScorer()
+        self.objective = objective
         self.clock = clock
         # ship the trained shared-buffer values in the plan: retraining
         # commits new values, so a weightless plan would rebuild the
@@ -483,6 +489,7 @@ class StagedPlanner:
         committed_groups: list = []
         attempted = committed = discarded = 0
         cumulative_saved = 0
+        best_obj = self.objective(self.store, []) if self.objective is not None else None
 
         queue = self.candidates()
         qi = 0
@@ -505,13 +512,25 @@ class StagedPlanner:
                 result = self._train(group)
 
                 if result.success:
+                    obj = None
+                    if self.objective is not None:
+                        obj = self.objective(self.store, committed_groups + [group])
+                        if obj < best_obj:
+                            # retraining passed but the deployed quality
+                            # regressed (e.g. merging broke the swap order):
+                            # roll back the commit and move on
+                            self._restore(snap)
+                            discarded += 1
+                            break
+                        best_obj = obj
                     committed += 1
                     committed_groups.append(group)
                     saved = before - self.store.resident_bytes()
                     cumulative_saved += saved
                     shipped = sum(self.store.model_bytes(mid) for mid in sorted(group.models))
                     ev = MergeEvent(self.clock() - t0, group.signature, len(group.records),
-                                    saved, cumulative_saved, shipped, result.accuracies)
+                                    saved, cumulative_saved, shipped, result.accuracies,
+                                    objective=obj)
                     events.append(ev)
                     break
 
@@ -530,18 +549,19 @@ class StagedPlanner:
 
         plan = self.store.export_plan(
             committed_groups,
-            provenance=self._provenance(events, attempted, committed, discarded, baseline),
+            provenance=self._provenance(events, attempted, committed, discarded, baseline,
+                                        best_obj),
             include_weights=self.plan_weights,
         )
         return PlanResult(self.store, events, attempted, committed, discarded, baseline,
                           self.store.resident_bytes(), pruned=len(self.pruned_candidates),
                           plan=plan)
 
-    def _provenance(self, events, attempted, committed, discarded, baseline) -> dict:
-        # the JAX package's schema: a cold start over every model, no
-        # per-attempt budget, and a per-event "objective" (a score from its
-        # simulator) that is always null here
-        return {
+    def _provenance(self, events, attempted, committed, discarded, baseline,
+                    best_obj) -> dict:
+        # the JAX package's schema: a cold start over every model and no
+        # per-attempt budget
+        prov = {
             "planner": type(self).__name__,
             "scorer": self.scorer.name,
             "warm_start": False,
@@ -558,7 +578,10 @@ class StagedPlanner:
                  "signature": signature_to_json(e.group_signature),
                  "n_appearances": e.n_appearances,
                  "saved_bytes": e.saved_bytes,
-                 "objective": None}
+                 "objective": e.objective}
                 for e in events
             ],
         }
+        if self.objective is not None:
+            prov["objective_final"] = best_obj
+        return prov

@@ -1,7 +1,6 @@
-"""Architectural signatures (the port of ``repro.core.signatures``; the
-layer-spec descriptor records wait for the descriptor zoo): two layers can
-merge iff their structural identity (op kind from the path, shape, dtype)
-matches, excluding weights.
+"""Architectural signatures (the port of ``repro.core.signatures``): two
+layers can merge iff their structural identity (op kind from the path,
+shape, dtype) matches, excluding weights.
 
 A signature is ``(kind, shape, dtype_name)`` with the numpy dtype name, so
 the port's signatures, group ids and store keys equal the JAX package's.
@@ -69,6 +68,15 @@ def _kind_from_path(path: str) -> str:
     """Semantic layer kind = path with numeric segments stripped, so
     ``blocks/3/attn/wq`` and ``blocks/7/attn/wq`` share a kind."""
     return "/".join(p for p in path.split("/") if not p.isdigit())
+
+
+def records_from_spec(spec: Any, model_id: Optional[str] = None) -> list:
+    """One record per descriptor layer.  ``spec`` is duck-typed (``name`` +
+    ``layers`` with per-layer ``name``/``signature``/``bytes``)."""
+    mid = model_id or spec.name
+    n = max(len(spec.layers), 1)
+    return [LayerRecord(mid, l.name, l.signature, l.bytes, i / n)
+            for i, l in enumerate(spec.layers)]
 
 
 def records_from_params(params: Any, model_id: str) -> list:

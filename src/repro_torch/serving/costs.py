@@ -1,13 +1,16 @@
-"""Per-model serving cost model (the port of ``repro.serving.costs``, table
-ids only).
+"""Per-model serving cost model (the port of ``repro.serving.costs``).
 
 Calibrated from the paper's Tables 1-2 (load/run memory and time on the
-edge GPU), reproduced verbatim.  The scheduler reads activation memory from
-it; interpolation for models outside the tables waits for a later slice.
+edge GPU), reproduced verbatim.  For models not in the tables (e.g. r18,
+r101, ssd-mnet, frcnn-r50) costs are interpolated from parameter counts
+against same-family anchors.  The scheduler reads activation memory from
+it and the simulator and profiler its run times: these are the paper's
+cost model, not measurements of the card the port runs on.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 PCIE_GBPS = 16.0  # effective host->GPU bandwidth used by the paper's numbers
 
@@ -24,6 +27,12 @@ _TABLES = {
     "ssd-vgg":    (0.106, 0.230, 0.328, 0.506, 16.1, 16.5, 25.7, 44.6),
 }
 
+# family anchor used to scale unlisted models by parameter ratio
+_FAMILY_ANCHOR = {
+    "resnet": "r50", "vgg": "vgg", "yolo": "yolo", "ssd": "ssd-vgg",
+    "frcnn": "frcnn-r101", "inception": "inception", "mobilenet": "tiny-yolo",
+}
+
 
 @dataclasses.dataclass(frozen=True)
 class ModelCosts:
@@ -32,6 +41,19 @@ class ModelCosts:
     run_gb: dict  # batch -> GB (includes load)
     load_ms: float
     run_ms: dict  # batch -> ms
+
+    def run_time(self, batch: int) -> float:
+        if batch in self.run_ms:
+            return self.run_ms[batch]
+        # linear interpolation / extrapolation on known batch points
+        ks = sorted(self.run_ms)
+        lo = max([k for k in ks if k <= batch], default=ks[0])
+        hi = min([k for k in ks if k >= batch], default=ks[-1])
+        if lo == hi:
+            per = self.run_ms[ks[-1]] / ks[-1]
+            return self.run_ms[ks[-1]] + per * (batch - ks[-1])
+        w = (batch - lo) / (hi - lo)
+        return self.run_ms[lo] * (1 - w) + self.run_ms[hi] * w
 
     def run_mem(self, batch: int) -> float:
         if batch in self.run_gb:
@@ -49,8 +71,30 @@ class ModelCosts:
         return max(self.run_mem(batch) - self.load_gb, 0.0)
 
 
+def default_spec_provider() -> Callable:
+    """Default ``model_id -> layer-spec descriptor`` source (shared by
+    ``costs_for`` interpolation and ``workload.build_instances``): the
+    paper's vision-zoo descriptors, resolved through the workload-config
+    layer so serving code never imports a concrete model family."""
+    from repro_torch.configs.vision_workloads import get_spec
+
+    return get_spec
+
+
 def costs_for(model_id: str) -> ModelCosts:
-    """Cost rows of the paper's tables; raises KeyError for other ids."""
-    lg, r1, r2, r4, lms, t1, t2, t4 = _TABLES[model_id]
-    return ModelCosts(model_id, lg, {1: r1, 2: r2, 4: r4}, lms,
-                      {1: t1, 2: t2, 4: t4})
+    if model_id in _TABLES:
+        lg, r1, r2, r4, lms, t1, t2, t4 = _TABLES[model_id]
+        return ModelCosts(model_id, lg, {1: r1, 2: r2, 4: r4}, lms,
+                          {1: t1, 2: t2, 4: t4})
+    get_spec = default_spec_provider()
+    spec = get_spec(model_id)
+    anchor_id = _FAMILY_ANCHOR[spec.family]
+    a = costs_for(anchor_id)
+    ratio = spec.params / get_spec(anchor_id).params if anchor_id in _TABLES else 1.0
+    return ModelCosts(
+        model_id,
+        a.load_gb * ratio,
+        {k: a.load_gb * ratio + (v - a.load_gb) * ratio for k, v in a.run_gb.items()},
+        a.load_ms * ratio,
+        {k: v * max(ratio, 0.3) for k, v in a.run_ms.items()},
+    )

@@ -1,11 +1,17 @@
-"""The merge-aware serving engine (the port of ``repro.serving.executor``:
-``MergeAwareEngine`` with its shared prefix, suffix bank, streaming decode
-lane and hot MergePlan swap; the per-request ``EdgeExecutor``, the drift
-``revert`` and the sharded bank wait for later slices).
+"""Real (non-simulated) edge executors — the port of
+``repro.serving.executor``.  Two serve paths share the scheduler policy:
 
-PyTorch runs eagerly, so there is nothing to compile: where the JAX engine
-blocks on ``jax.block_until_ready`` this one synchronises the device that
-holds the result.  The engine statistics the two packages share keep their
+* :class:`EdgeExecutor` — the time/space-sharing baseline: one padded
+  batch per visit of the round robin, a synchronous (modelled) DMA stall
+  before each swap, and a per-request decode lane on a contiguous cache;
+* :class:`MergeAwareEngine` — the merge-aware hot path: shared prefix,
+  suffix bank, async DMA prefetch, the streaming decode lane and the hot
+  MergePlan swap.  The drift ``revert`` and the sharded bank wait for
+  later slices.
+
+PyTorch runs eagerly, so there is nothing to compile: where the JAX
+executors block on ``jax.block_until_ready`` these synchronise the device
+that holds the result.  The statistics the two packages share keep their
 meaning.
 
 The DMA delay is modelled (``AsyncDMA``), while residency, eviction and
@@ -23,8 +29,8 @@ import torch
 from repro_torch.core.store import ParamStore
 from repro_torch.serving.costs import PCIE_GBPS
 from repro_torch.serving.scheduler import Instance, Scheduler
-from repro_torch.serving.workload import deadline_microbatches, pad_stack
-from repro_torch.utils.tree import leaf_bytes
+from repro_torch.serving.workload import bucket_for, deadline_microbatches, pad_stack
+from repro_torch.utils.tree import flatten_paths, leaf_bytes
 
 
 IDLE_SLEEP_S = 2e-4  # back-off when every queue is empty and not draining
@@ -35,6 +41,13 @@ def block_until_ready(t: torch.Tensor) -> torch.Tensor:
     if t.is_cuda:
         torch.cuda.synchronize(t.device)
     return t
+
+
+def base_model_id(instance_id: str) -> str:
+    """ParamStore bindings key for an instance id: feed instances are named
+    ``<model>#<k>`` (``workload.build_instances``); bare model ids pass
+    through unchanged."""
+    return instance_id.split("#", 1)[0]
 
 
 @dataclasses.dataclass
@@ -72,6 +85,175 @@ class Completion:
     @property
     def met_sla(self) -> bool:
         return self.finished_s <= self.request.deadline_s
+
+
+class EdgeExecutor:
+    """instances + forward fns + store -> the per-request serve loop (the
+    time/space-sharing baseline the merge-aware engine is held against)."""
+
+    def __init__(
+        self,
+        store: ParamStore,
+        instances: list,
+        forward_fns: dict,  # instance_id -> callable(params, payload)
+        capacity_bytes: int,
+        costs: dict,
+        simulate_dma: bool = True,
+        buckets: tuple = (1, 2, 4, 8),
+        clock: Callable[[], float] = time.monotonic,
+    ):
+        self.store = store
+        self.clock = clock  # injected so harness replays can freeze time
+        self.scheduler = Scheduler(instances, capacity_bytes, costs)
+        self.forward = dict(forward_fns)
+        self.simulate_dma = simulate_dma
+        self.buckets = tuple(sorted(buckets))
+        self.queues = {i.instance_id: deque() for i in instances}
+        self.completions: list = []
+        self.skipped: int = 0
+        self.dropped_expired: int = 0
+        self.decode_completions: list = []
+
+    def submit(self, req: Request):
+        self.queues[req.instance_id].append(req)
+
+    def _drop_expired(self, now: float):
+        n = drop_expired(self.queues, now)
+        self.skipped += n
+        self.dropped_expired += n
+
+    def _load(self, iid: str, batch: int):
+        """Make ``iid`` resident under the scheduler's accounting (sleeping
+        the modelled transfer of its incremental bytes) and return its
+        params."""
+        r = self.scheduler.load(iid, batch)
+        if self.simulate_dma and r["loaded_bytes"]:
+            time.sleep(r["loaded_bytes"] / 1e9 / PCIE_GBPS)
+        return self.store.materialize_cached(base_model_id(iid))
+
+    def serve(self, horizon_s: float, batch: int = 1, warmup: Any = None,
+              drain: bool = False) -> dict:
+        """Round-robin over instances until the horizon (or, with
+        ``drain=True``, until every queue is empty); returns stats.  A
+        ``warmup`` payload runs each instance's forward at every bucket of
+        the ladder before the SLA clock starts.  The requests taken from a
+        queue run as ONE padded batch through the same :func:`pad_stack`
+        bucket ladder the engine uses: what this baseline lacks against
+        the engine is sharing, prefetch and the suffix bank, not batching."""
+        order = [i.instance_id for i in self.scheduler.order]
+        ladder = tuple(sorted({b for b in self.buckets if b <= batch} | {batch}))
+        if warmup is not None:
+            for iid in order:
+                params = self.store.materialize_cached(base_model_id(iid))
+                for b in ladder:
+                    wb, _ = pad_stack([warmup] * b, b)
+                    block_until_ready(self.forward[iid](params, wb))
+        t0 = self.clock()
+        idx = 0
+        empty_streak = 0
+        while self.clock() - t0 < horizon_s:
+            iid = order[idx % len(order)]
+            idx += 1
+            self._drop_expired(self.clock() - t0)
+            q = self.queues[iid]
+            if not q:
+                if drain and not any(self.queues.values()):
+                    break
+                empty_streak += 1
+                if empty_streak >= len(order):
+                    # every queue was empty for a full pass: yield instead of
+                    # busy-spinning on the clock
+                    time.sleep(IDLE_SLEEP_S)
+                    empty_streak = 0
+                continue
+            empty_streak = 0
+            params = self._load(iid, batch)
+            taken = [q.popleft() for _ in range(min(batch, len(q)))]
+            stacked, _ = pad_stack([req.payload for req in taken],
+                                   bucket_for(len(taken), ladder))
+            out = block_until_ready(self.forward[iid](params, stacked))
+            done = self.clock() - t0
+            for j, req in enumerate(taken):
+                self.completions.append(Completion(req, out[j], done))
+        met = sum(1 for c in self.completions if c.met_sla)
+        total = len(self.completions) + self.skipped
+        return {
+            "completed": len(self.completions),
+            "met_sla": met,
+            "skipped": self.skipped,
+            "dropped_expired": self.dropped_expired,
+            "sla_fraction": met / max(total, 1),
+        }
+
+    def serve_decode(self, requests: list, programs: list, max_len: int = 64,
+                     horizon_s: float = 60.0, warmup: bool = True) -> dict:
+        """Per-request decode baseline lane: one request at a time in EDF
+        order, each on its own contiguous cache (``DecodeSplit.init_cache``)
+        — ONE chunked step over the whole prompt, then one single-token step
+        per further generated token.  Greedy argmax over the full padded
+        vocab (the first maximal index, as ``np.argmax``), as the streaming
+        decoder takes it.  Stats mirror the decoder's ``tokens_decoded`` /
+        ``steps`` / ``prompt_tokens``."""
+        from repro_torch.serving.decode import DecodeCompletion
+
+        progs = {p.instance_id: p for p in programs}
+        for req in requests:
+            if progs[req.instance_id].decode is None:
+                raise ValueError(f"{req.instance_id}: program has no decode "
+                                 "surface (adapter lacks can_decode)")
+
+        def device_of(params) -> torch.device:
+            return next(iter(flatten_paths(params).values())).device
+
+        def tokens(values, device) -> torch.Tensor:
+            return torch.as_tensor(values, dtype=torch.int32, device=device)[None, :]
+
+        order = sorted(requests, key=lambda r: (r.deadline_s, r.arrival_s))
+        if warmup:  # run both shapes once (prompt chunk + single token)
+            seen = set()
+            for req in order:
+                dec = progs[req.instance_id].decode
+                key = (id(dec), len(req.prompt))
+                if key in seen:
+                    continue
+                seen.add(key)
+                params = self.store.materialize_cached(base_model_id(req.instance_id))
+                device = device_of(params)
+                cache = dec.init_cache(1, max_len, device=device)
+                _, cache = dec.step_unpaged(params, cache, tokens([0] * len(req.prompt), device))
+                lg, _ = dec.step_unpaged(params, cache, tokens([0], device))
+                block_until_ready(lg)
+
+        stats = {"steps": 0, "tokens_decoded": 0, "prompt_tokens": 0}
+        completions: list = []
+        t0 = self.clock()
+        for req in order:
+            if self.clock() - t0 > horizon_s:
+                break
+            dec = progs[req.instance_id].decode
+            params = self._load(req.instance_id, 1)
+            device = device_of(params)
+            cache = dec.init_cache(1, max_len, device=device)
+            logits, cache = dec.step_unpaged(params, cache,
+                                             tokens([int(t) for t in req.prompt], device))
+            stats["steps"] += 1
+            stats["prompt_tokens"] += len(req.prompt)
+            out = [int(logits[0, -1].argmax())]
+            stats["tokens_decoded"] += 1
+            for _ in range(req.max_new_tokens - 1):
+                logits, cache = dec.step_unpaged(params, cache, tokens([out[-1]], device))
+                stats["steps"] += 1
+                out.append(int(logits[0, 0].argmax()))
+                stats["tokens_decoded"] += 1
+            completions.append(DecodeCompletion(req, out, self.clock() - t0))
+        self.decode_completions = completions
+        elapsed = self.clock() - t0
+        return {
+            "completed": len(completions),
+            "elapsed_s": elapsed,
+            "tokens_per_s": stats["tokens_decoded"] / max(elapsed, 1e-9),
+            **stats,
+        }
 
 
 @dataclasses.dataclass

@@ -1,10 +1,12 @@
 """Merging-aware Nexus-variant scheduler (§3.2 + §5.4) — the port of
 ``repro.serving.scheduler`` for one device (sharded admission waits for a
-later slice).  Pure policy: no framework code.
+later slice).  Pure policy: no framework code; the discrete-event
+simulator and the real executors both drive it.
 
   * round-robin order over model instances; with merging, instances that
     share the most bytes are placed adjacently so each swap loads only the
     non-resident layers (§5.4);
+  * without merging, instances are visited in ``instance_id`` order;
   * memory admission: the params resident set is tracked at store-key
     granularity; eviction removes the most-recently-run instance's private
     keys ("next use most distant in the future" under round-robin);
@@ -70,9 +72,11 @@ class MemoryState:
 class Scheduler:
     """Admission + eviction + swap accounting over one device."""
 
-    def __init__(self, instances: list, capacity_bytes: int, costs: dict):
+    def __init__(self, instances: list, capacity_bytes: int, costs: dict,
+                 merged: bool = True):
         self.instances = {i.instance_id: i for i in instances}
-        self.order = merging_aware_order(instances)
+        self.order = (merging_aware_order(instances) if merged
+                      else sorted(instances, key=lambda i: i.instance_id))
         self.mem = MemoryState.empty(capacity_bytes)
         self.costs = costs
         self.stats = {"loads": 0, "loaded_bytes": 0, "evictions": 0}
@@ -134,6 +138,9 @@ class Scheduler:
             "resident_bytes": self.mem.used_bytes,
         }
 
+    def run_time_ms(self, instance_id: str, batch: int) -> float:
+        return self.costs[self.instances[instance_id].model_id].run_time(batch)
+
     def rebind(self, instances: list) -> dict:
         """Swap the instance table for plan-rebuilt Instances (a live
         MergePlan application changed the store-key sets) WITHOUT resetting
@@ -170,3 +177,15 @@ class Scheduler:
     def overlapped_load_ms(load_ms: float, hidden_ms: float) -> float:
         """Visible stall of a load that overlaps ``hidden_ms`` of compute."""
         return max(load_ms - hidden_ms, 0.0)
+
+    def cycle_swap_bytes(self, batches: dict) -> dict:
+        """Steady-state incremental load (GB) per instance around the
+        round-robin cycle (for the profiler): two full cycles on a copy."""
+        out = {}
+        sim = Scheduler(list(self.instances.values()), self.mem.capacity_bytes, self.costs)
+        sim.order = self.order
+        for _ in range(2):
+            for inst in self.order:
+                r = sim.load(inst.instance_id, batches.get(inst.instance_id, 1))
+                out[inst.instance_id] = r["loaded_bytes"] / 1e9
+        return out

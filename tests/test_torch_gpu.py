@@ -790,3 +790,154 @@ def test_wire_codec_round_trips_a_cuda_bf16_tensor(cuda_device):
     back = decode_weight_entry(entry)
     assert back.dtype == torch.bfloat16 and torch.equal(back.to(cuda_device), t)
     assert encode_weight_entry(t, base=t.clone())["kind"] == "same"
+
+
+@pytest.mark.gpu
+def test_edge_executor_serves_and_decodes_on_the_card(cuda_device):
+    """The time-shared baseline on the card: a store of three unmerged
+    float32 members whose capacity holds one, served (batch 2) and decoded
+    one request at a time, against the same executor on a CPU copy of the
+    store through the plain versions (float32 on both sides, so the rows
+    are held to the float32 tolerance; the bf16 lanes at full width are
+    chip_smoke.py's ``stablelm_timeshare*``).  Serving launches
+    flash_attention and no bank; decoding launches decode_attention and
+    neither page_gather nor the bank."""
+    from repro_torch.core import ParamStore
+    from repro_torch.models.registry import get_adapter
+    from repro_torch.models.transformer import DenseLMConfig
+    from repro_torch.serving.costs import costs_for
+    from repro_torch.serving.decode import DecodeRequest
+    from repro_torch.serving.executor import EdgeExecutor, ModelProgram, Request
+    from repro_torch.serving.workload import instances_from_store
+    from repro_torch.utils.tree import flatten_paths, unflatten_paths
+
+    adapter = get_adapter("dense")
+    cfg = DenseLMConfig(name="gpu-lm", n_layers=2, d_model=128, n_heads=4, n_kv_heads=2,
+                        head_dim=64, d_ff=256, vocab_size=300, rotary_pct=0.25,
+                        norm="layernorm", dtype="float32")
+    mids = ("A", "B", "C")
+    params = {m: adapter.init(cfg, seed=i, device=cuda_device) for i, m in enumerate(mids)}
+    cpu = torch.device("cpu")
+    stores = {
+        "cuda": ParamStore.from_models(params),
+        "cpu": ParamStore.from_models({m: unflatten_paths({k: v.cpu() for k, v in
+                                                           flatten_paths(p).items()})
+                                       for m, p in params.items()}),
+    }
+    act = int(costs_for("tiny-yolo").activation_gb(2) * 1e9)
+    capacity = act + int(1.5 * stores["cpu"].model_bytes("A"))
+    g = torch.Generator().manual_seed(5)
+    tokens = [torch.randint(0, cfg.vocab_size, (1, 16), generator=g) for _ in range(6)]
+    prompts = [torch.randint(0, cfg.vocab_size, (9,), generator=g).numpy() for _ in range(3)]
+    out, launches = {}, {}
+    for name, device in (("cuda", cuda_device), ("cpu", cpu)):
+        store = stores[name]
+        ex = EdgeExecutor(store, instances_from_store(store, "tiny-yolo"),
+                          {m: adapter.bound_forward(cfg) for m in mids},
+                          capacity_bytes=capacity, costs={"tiny-yolo": costs_for("tiny-yolo")},
+                          simulate_dma=False)
+        for i, t in enumerate(tokens):
+            ex.submit(Request(mids[i % 3], t.to(device), 0.0, 60.0 + i * 1e-3, meta=i))
+        ops.reset_kernel_launches()
+        stats = ex.serve(horizon_s=120.0, batch=2, warmup=tokens[0].to(device), drain=True)
+        serve_launches = ops.kernel_launches()
+        reqs = [DecodeRequest(mids[i], prompts[i], max_new_tokens=4) for i in range(3)]
+        ops.reset_kernel_launches()
+        dstats = ex.serve_decode(reqs, [ModelProgram.from_adapter(adapter, m, cfg=cfg)
+                                        for m in mids], max_len=32)
+        out[name] = (stats, {c.request.meta: c.result for c in ex.completions},
+                     dstats, ex.decode_completions, ex.scheduler.stats)
+        launches[name] = (serve_launches, ops.kernel_launches())
+    (stats, res, dstats, comps, sched), (cstats, cres, cdstats, ccomps, csched) = \
+        out["cuda"], out["cpu"]
+    assert stats == cstats and stats["completed"] == 6 and sched == csched
+    assert sched["evictions"] > 0
+    serve_l, decode_l = launches["cuda"]
+    assert serve_l["flash_attention"] > 0 and serve_l["bank_matmul"] == 0
+    assert decode_l["decode_attention"] > 0
+    assert decode_l["page_gather"] == 0 and decode_l["bank_matmul"] == 0
+    assert not any(launches["cpu"][0].values()) and not any(launches["cpu"][1].values())
+    for i in res:
+        assert res[i].is_cuda and res[i].dtype == torch.float32
+        torch.testing.assert_close(res[i].cpu(), cres[i], **TOL["float32"])
+    keys = ("completed", "steps", "tokens_decoded", "prompt_tokens")
+    assert {k: dstats[k] for k in keys} == {k: cdstats[k] for k in keys}
+    assert dstats["steps"] == dstats["tokens_decoded"] == 3 * 4
+    for c, cc in zip(comps, ccomps):
+        assert c.request is cc.request or c.request.instance_id == cc.request.instance_id
+        logits = adapter.forward(cfg, stores["cpu"].materialize(cc.request.instance_id),
+                                 torch.from_numpy(cc.request.prompt.astype("int64"))[None])
+        row = logits[0, -1].float()
+        top2 = torch.topk(row, 2).values
+        if top2[0] - top2[1] > 2e-3 + 2e-3 * top2[0].abs():
+            assert c.tokens[0] == cc.tokens[0] == int(row.argmax())
+
+
+def _edge_serve_rows(adapter, cfg, params, device, tokens, mids):
+    """``EdgeExecutor.serve`` (batch 2, drained) of ``tokens`` over a store of
+    ``params`` moved to ``device``, at a capacity that holds one member:
+    the rows by request as float32 on the CPU, and the serve's launches."""
+    from repro_torch.core import ParamStore
+    from repro_torch.serving.costs import costs_for
+    from repro_torch.serving.executor import EdgeExecutor, Request
+    from repro_torch.serving.workload import instances_from_store
+    from repro_torch.utils.tree import flatten_paths, unflatten_paths
+
+    store = ParamStore.from_models({m: unflatten_paths({k: v.to(device) for k, v in
+                                                        flatten_paths(p).items()})
+                                    for m, p in params.items()})
+    act = int(costs_for("tiny-yolo").activation_gb(2) * 1e9)
+    ex = EdgeExecutor(store, instances_from_store(store, "tiny-yolo"),
+                      {m: adapter.bound_forward(cfg) for m in mids},
+                      capacity_bytes=act + int(1.5 * store.model_bytes(mids[0])),
+                      costs={"tiny-yolo": costs_for("tiny-yolo")}, simulate_dma=False)
+    for i, t in enumerate(tokens):
+        ex.submit(Request(mids[i % len(mids)], t.to(device), 0.0, 60.0 + i * 1e-3, meta=i))
+    ops.reset_kernel_launches()
+    stats = ex.serve(horizon_s=120.0, batch=2, warmup=tokens[0].to(device), drain=True)
+    assert stats["completed"] == len(tokens) and ex.scheduler.stats["evictions"] > 0
+    return {c.request.meta: c.result.float().cpu() for c in ex.completions}, ops.kernel_launches()
+
+
+@pytest.mark.gpu
+def test_edge_executor_bf16_serve_strays_from_float32_no_more_than_the_cpu(cuda_device):
+    """The bf16 serve at the config of the test above.  Two bf16 runs of it
+    (the card's kernels, the CPU's plain versions) each round their own way,
+    and at this config bf16 alone moves some logits by more than the bf16
+    kernel tolerance from their float32 values.  So the card's bf16 rows are
+    held against float32 rows of the same (bf16-valued) weights on the CPU,
+    to twice the gap that the CPU's own bf16 rows show against them, at the
+    largest element and in RMS.  The gaps are printed (``-s``)."""
+    import dataclasses
+
+    from repro_torch.models.registry import get_adapter
+    from repro_torch.models.transformer import DenseLMConfig
+    from repro_torch.utils.tree import flatten_paths, unflatten_paths
+
+    adapter = get_adapter("dense")
+    cfg = DenseLMConfig(name="gpu-lm", n_layers=2, d_model=128, n_heads=4, n_kv_heads=2,
+                        head_dim=64, d_ff=256, vocab_size=300, rotary_pct=0.25,
+                        norm="layernorm", dtype="bfloat16")
+    mids = ("A", "B", "C")
+    cpu = torch.device("cpu")
+    params = {m: adapter.init(cfg, seed=i, device=cpu) for i, m in enumerate(mids)}
+    params32 = {m: unflatten_paths({k: v.float() for k, v in flatten_paths(p).items()})
+                for m, p in params.items()}
+    g = torch.Generator().manual_seed(5)
+    tokens = [torch.randint(0, cfg.vocab_size, (1, 16), generator=g) for _ in range(6)]
+    card, launches = _edge_serve_rows(adapter, cfg, params, cuda_device, tokens, mids)
+    host, host_launches = _edge_serve_rows(adapter, cfg, params, cpu, tokens, mids)
+    f32, _ = _edge_serve_rows(adapter, dataclasses.replace(cfg, dtype="float32"), params32,
+                              cpu, tokens, mids)
+    assert launches["flash_attention"] > 0 and launches["bank_matmul"] == 0
+    assert not any(host_launches.values())
+    assert sorted(card) == sorted(host) == sorted(f32) == list(range(len(tokens)))
+
+    def gap(rows, ref):
+        d = torch.stack([rows[i] - ref[i] for i in sorted(ref)])
+        return d.abs().max().item(), d.pow(2).mean().sqrt().item()
+
+    card_gap, host_gap = gap(card, f32), gap(host, f32)
+    print(f"edge bf16 serve, max and RMS gap to float32: card {card_gap}, cpu {host_gap}, "
+          f"card to cpu bf16 {gap(card, host)}, elements {sum(r.numel() for r in f32.values())}")
+    assert card_gap[0] <= 2 * host_gap[0] and card_gap[1] <= 2 * host_gap[1], (card_gap, host_gap)
