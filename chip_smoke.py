@@ -89,7 +89,29 @@ device memory still allocated and closes with its seconds):
    against direct forwards, shared buffers bitwise the cloud's (by
    digest), resident bytes no more than the hand merge of lm-A/B/D plus
    lm-C unmerged, tensor-core routes only;
-9. joint retraining on the card (``small_cnn_retrain``):
+9. GEMEL's drift loop (``repro_torch.bench.drift_adapt``) on seven
+   full-width stablelm-1.6b members (``stablelm_drift``): first the
+   pre-drift agreement that lm_zoo's recipe (trunk + 0.005) leaves each
+   merged variant, then a zoo of trunk + 0.0002, head + 1.0 variants
+   (each merge lossy; each member's pre-drift agreement printed) planned
+   with the CKA prefilter and the coherence surrogate, shipped as JSON and
+   hot-swapped into a live engine; a ``ManualClock`` timeline of 8
+   periods of 10 s under ``LifecycleController`` (checks: per-position
+   argmax agreement with each member's current original on 16 prompts of
+   32 tokens, target 0.5), lm-B's original replaced at period 3, and a
+   static timeline on the same decoded plan.  Gates: breach within a
+   period with the revert in the same tick (one epoch bump, requests
+   pending), one revert, one swap, 20 s to recover, every request served,
+   savings restored >= 0.8, warm <= cold re-plan attempts, the static
+   lane's lm-B under target, post-swap rows bitwise their replay, banked
+   rows within 2e-2 of each member's own suffix over the batch, and rows
+   within 2e-2 of the direct forwards.  Then on that engine
+   (``stablelm_swap_failure``) a swap failure armed after one column: the
+   deployed plan's apply raises with one epoch bump, bindings restored and
+   the queue kept, and a clean re-apply serves it.  Then the ported
+   ``drift_adapt`` and ``overload`` benches at their small-CNN scale,
+   each with its scripts/ci.sh gates;
+10. joint retraining on the card (``small_cnn_retrain``):
    ``examples/quickstart.py``'s two pretrained small CNNs through
    ``IncrementalMerger`` with ``MergeTrainer``; each attempt's shared
    gradients against the members' separate ones, and its joint loss
@@ -593,15 +615,16 @@ def interleaved_requests(mids, make_payload):
             for j in range(REQS_PER_MEMBER) for i, m in enumerate(mids)]
 
 
-def served_vs_direct(torch, adapter, cfg, store, eng, reqs, dtype) -> float:
+def served_vs_direct(torch, adapter, cfg, store, eng, reqs, dtype, buckets=BUCKETS) -> float:
     """Max abs error of every served row against the member's direct
-    forward on the same padded batch (micro-batches rebuilt in EDF order —
-    a group drains in one visit, so they are the engine's own)."""
+    forward on the same padded batch (micro-batches rebuilt in EDF order
+    over the engine's ``buckets`` — a group drains in one visit, so they
+    are the engine's own)."""
     from repro_torch.serving.workload import deadline_microbatches, pad_stack
 
     res = {id(c.request): c.result for c in eng.completions}
     worst = 0.0
-    for mb in deadline_microbatches(reqs, BUCKETS):
+    for mb in deadline_microbatches(reqs, buckets):
         batch, _ = pad_stack([r.payload for r in mb.requests], mb.bucket)
         direct = {m: adapter.forward(cfg, store.materialize(m), batch)
                   for m in {r.instance_id for r in mb.requests}}
@@ -680,17 +703,18 @@ def perturb(torch, params: dict, seed: int, scale: float, select) -> dict:
     return unflatten_paths(out)
 
 
-def lm_zoo(torch, adapter, cfg) -> dict:
-    """Three variants of one base: trunks perturbed by 0.005, heads by 1.0
-    (the ``lm_zoo`` pattern of benchmarks/lm_merging.py)."""
-    def is_head(p):
-        return p.startswith(("final_norm/", "lm_head/"))
+def is_lm_head(path: str) -> bool:
+    return path.startswith(("final_norm/", "lm_head/"))
 
+
+def lm_zoo(torch, adapter, cfg, mids=LM_MIDS, trunk_scale: float = 0.005) -> dict:
+    """Variants of one base: trunks perturbed by ``trunk_scale`` (0.005, the
+    ``lm_zoo`` pattern of benchmarks/lm_merging.py), heads by 1.0."""
     base = adapter.init(cfg, seed=0, device="cuda")
-    zoo = {LM_MIDS[0]: base}
-    for i, mid in enumerate(LM_MIDS[1:]):
-        v = perturb(torch, base, 2 * i + 1, 0.005, lambda p: not is_head(p))
-        zoo[mid] = perturb(torch, v, 2 * i + 2, 1.0, is_head)
+    zoo = {mids[0]: base}
+    for i, mid in enumerate(mids[1:]):
+        v = perturb(torch, base, 2 * i + 1, trunk_scale, lambda p: not is_lm_head(p))
+        zoo[mid] = perturb(torch, v, 2 * i + 2, 1.0, is_lm_head)
         del v
     return zoo
 
@@ -1460,7 +1484,240 @@ def stablelm_plan_phase(torch, cfg, capacity_bytes: int) -> tuple:
 
 
 # ---------------------------------------------------------------------------
-# phase 9: joint retraining on the card
+# phase 9: GEMEL's drift loop on a full-width stablelm-1.6b zoo
+# ---------------------------------------------------------------------------
+
+DRIFT_MIDS = tuple(f"lm-{c}" for c in "ABCDEFG")
+DRIFT_PERIODS, DRIFT_AT = 8, 3
+# trunk perturbations whose merged members' pre-drift agreement the phase
+# reports (lm_zoo's 0.005 first), and the drift zoo's (see
+# stablelm_drift_phase)
+RECIPE_TRUNK_SCALES = (0.005, 0.0005, 0.0002, 0.0001)
+DRIFT_TRUNK_SCALE = 0.0002
+
+
+def lm_probe(torch, cfg, period: int):
+    """The sampled inputs of one drift check: 16 prompts of 32 tokens
+    (``LMStream`` with seed 1000 + period)."""
+    from repro_torch.data.synthetic import LMStream
+
+    return LMStream(cfg.vocab_size, 16, 32, seed=1000 + period, device="cuda").batch_at(0)["tokens"]
+
+
+def merged_agreement(torch, adapter, cfg, trunk_scale: float) -> dict:
+    """lm_zoo's variants at ``trunk_scale``, each merged onto the base's
+    trunk as the planner merges them: the fraction of period 0's probe
+    positions where the merged member's argmax equals its original's, by
+    member.  One variant is resident at a time."""
+    from repro_torch.utils.tree import flatten_paths, unflatten_paths
+
+    base = adapter.init(cfg, seed=0, device="cuda")
+    base_flat = flatten_paths(base)
+    tokens = lm_probe(torch, cfg, 0)
+    out = {}
+    for i, mid in enumerate(DRIFT_MIDS[1:]):
+        v = perturb(torch, base, 2 * i + 1, trunk_scale, lambda p: not is_lm_head(p))
+        original = perturb(torch, v, 2 * i + 2, 1.0, is_lm_head)
+        del v
+        merged = unflatten_paths({p: leaf if is_lm_head(p) else base_flat[p]
+                                  for p, leaf in flatten_paths(original).items()})
+        want = adapter.forward(cfg, original, tokens).argmax(-1)
+        out[mid] = (adapter.forward(cfg, merged, tokens).argmax(-1) == want).float().mean().item()
+        del original, merged
+    return out
+
+
+def drift_scenario(torch, adapter, cfg, zoo: dict):
+    """The JAX bench's drift scenario over a full-width zoo: lm-B (the
+    second member) drifts to ``adapter.init(seed=999)``, 2 requests of 128
+    seeded tokens per member per period, checks on ``lm_probe``,
+    calibration as ``stablelm_plan``'s (32 sequences of 8 tokens)."""
+    from repro_torch.bench.drift_adapt import DriftScenario
+
+    def payload(period, i, j):
+        gen = torch.Generator(device="cuda").manual_seed(5000 + 97 * period + 7 * i + j)
+        return torch.randint(0, cfg.vocab_size, (1, 128), generator=gen, device="cuda")
+
+    return DriftScenario(
+        adapter, cfg, zoo, drifted_original=adapter.init(cfg, seed=999, device="cuda"),
+        calibration=adapter.calibration_batch(
+            cfg, torch.Generator(device="cuda").manual_seed(7), 32),
+        payload=payload, probe=lambda period: lm_probe(torch, cfg, period))
+
+
+def stablelm_drift_phase(torch, cfg) -> tuple:
+    """The JAX package's drift benchmark (benchmarks/drift_adapt.py) over
+    seven full-width stablelm-1.6b members: the CKA-prefiltered plan with
+    the coherence surrogate (``min_similarity`` 0.5), shipped through JSON
+    and hot-swapped into a live engine; a ``ManualClock`` timeline of 8
+    periods of 10 s with ``LifecycleController`` (checks: per-position
+    argmax agreement with each member's current original, target 0.5), lm-B
+    drifting at the start of period 3; a static timeline on the same
+    decoded plan; one more trace served after the swap and replayed
+    (``verify_bitwise``: the same padded micro-batches through the same
+    dispatches, bitwise; banked rows against each member's own suffix,
+    2e-2) and held to the direct forwards (2e-2); a cold
+    re-plan for the warm-start comparison.  Gates: those of scripts/ci.sh
+    for drift but the simulator's (``drift_adapt.gates``).
+
+    lm_zoo's trunk perturbation (0.005, 23% of a dense weight's init scale
+    1/sqrt(2048)) leaves a merged member's argmax on its original's at
+    only 2-5% of positions (``recipe_agreement``), so under a 0.5 target
+    every variant would breach at the first check, before any drift.  The
+    drift zoo's trunks are perturbed by 0.0002, whose lowest variant agrees
+    at 0.846 (0.0005: 0.676; PERF.md §6): every trunk differs, so each
+    merge is lossy, yet each merged member stays well above the target and
+    the one breach is the drift's.  Each member's pre-drift agreement is
+    printed (``pre_drift_agreement``).  Returns (kernel launches of the
+    phase, their routes, loop info)."""
+    from repro_torch.bench import drift_adapt as D
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import get_adapter
+    from repro_torch.utils.tree import flatten_paths, leaf_bytes
+
+    adapter = get_adapter("dense")
+    t_phase = start_phase(torch, "stablelm_drift")
+    t0 = time.perf_counter()
+    recipe = {f"{scale:g}": merged_agreement(torch, adapter, cfg, scale)
+              for scale in RECIPE_TRUNK_SCALES}
+    recipe_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    scn = drift_scenario(torch, adapter, cfg, lm_zoo(torch, adapter, cfg, DRIFT_MIDS,
+                                                     DRIFT_TRUNK_SCALE))
+    torch.cuda.synchronize()
+    zoo_s = time.perf_counter() - t0
+    ops.reset_kernel_launches()
+    t0 = time.perf_counter()
+    rows, derived, loop, static = D.evaluate(scn, DRIFT_PERIODS, DRIFT_AT, sim=False)
+    torch.cuda.synchronize()
+    evaluate_s = time.perf_counter() - t0
+    launches, routes = ops.kernel_launches(), ops.route_launches()
+    tensor_core_routes_only(routes)
+    assert launches["flash_attention"] > 0 and launches["bank_matmul"] > 0, launches
+    edge, eng = loop["edge"], loop["engine"]
+    extra = loop["post_swap_requests"]
+    err = max(served_vs_direct(torch, adapter, cfg, edge, eng,
+                               [r for r in extra if r.instance_id in g], "bfloat16",
+                               buckets=D.BUCKETS)
+              for g in eng.prefix_groups())
+    trunk = adapter.split(cfg).prefix_paths
+    trunk_bytes = sum(leaf_bytes(v) for p, v in flatten_paths(adapter.eval_params(cfg)).items()
+                      if p in trunk)
+    head_bytes = edge.model_bytes("lm-A") - trunk_bytes
+    gates = D.gates(derived)
+    ctl = loop["controller"]
+    emit("stablelm_drift", config=cfg.name, members=len(DRIFT_MIDS), periods=DRIFT_PERIODS,
+         drift_period=DRIFT_AT, recipe_agreement=recipe, recipe_s=recipe_s,
+         drift_trunk_scale=DRIFT_TRUNK_SCALE,
+         pre_drift_agreement={m: [r["agreement"][m] for r in loop["rows"][:DRIFT_AT]]
+                              for m in DRIFT_MIDS},
+         rows=[{k: r[k] for k in ("period", "t_s", "state", "resident_bytes", "agreement")}
+               for r in loop["rows"]],
+         static_rows=[{k: r[k] for k in ("period", "agreement")} for r in static["rows"]],
+         events=[dict(time=e.time, state=e.state, **{k: v for k, v in e.detail.items()
+                                                    if k != "shared_keys"})
+                 for e in ctl.events],
+         derived=derived, gates=gates, resident_bytes_unmerged=loop["unmerged_bytes"],
+         expected_merged_bytes=trunk_bytes + len(DRIFT_MIDS) * head_bytes,
+         expected_reverted_bytes=2 * trunk_bytes + len(DRIFT_MIDS) * head_bytes,
+         plan0_groups=len(loop["plan0"].groups),
+         replan_groups=len(ctl.deployed_plan.groups), seconds_loop=loop["seconds"],
+         seconds_static=static["seconds"], launches=launches, route_launches=routes,
+         max_abs_err_vs_forward=err, tol=TOL["bfloat16"], zoo_s=zoo_s, evaluate_s=evaluate_s,
+         seconds=time.perf_counter() - t_phase)
+    assert all(gates.values()), {k: v for k, v in gates.items() if not v}
+    return launches, routes, dict(loop, scenario=scn)
+
+
+def stablelm_swap_failure_phase(torch, loop: dict) -> tuple:
+    """On ``stablelm_drift``'s engine after its recovery, with one period's
+    requests queued: a one-shot swap failure armed after one column
+    (``FaultInjector.arm_swap_failure``) and the deployed plan applied —
+    ``PlanApplyError``, one epoch bump, bindings bit-identical, the queue
+    kept — then a clean re-apply (one bump) and the serve.  Returns (kernel
+    launches of the serve, their routes)."""
+    from repro_torch.bench import drift_adapt as D
+    from repro_torch.bench.overload import swap_failure
+    from repro_torch.kernels import ops
+    from repro_torch.serving.faults import FaultInjector
+
+    t_phase = start_phase(torch, "stablelm_swap_failure")
+    eng, edge, scn = loop["engine"], loop["edge"], loop["scenario"]
+    plan = loop["controller"].deployed_plan
+    reqs = D.period_requests(scn, DRIFT_PERIODS + 1, 0.0)
+    for r in reqs:
+        eng.submit(r)
+    injector = FaultInjector()
+    t0 = time.perf_counter()
+    failed = swap_failure(eng, injector, plan, eng.queues)
+    rollback_s = time.perf_counter() - t0
+    epoch0 = edge.epoch
+    t0 = time.perf_counter()
+    out = eng.apply_plan(plan)
+    torch.cuda.synchronize()
+    reapply_s = time.perf_counter() - t0
+    ops.reset_kernel_launches()
+    since = len(eng.completions)
+    stats = eng.serve(horizon_s=600.0)
+    launches, routes = ops.kernel_launches(), ops.route_launches()
+    tensor_core_routes_only(routes)
+    served = eng.completions[since:]
+    emit("stablelm_swap_failure", **failed, fault_events=injector.events,
+         rollback_s=rollback_s, reapply_epoch_bumps=out["epoch_bumps"],
+         reapply_pending_requests=out["pending_requests"], reapply_s=reapply_s,
+         stats=stats, launches=launches, route_launches=routes,
+         seconds=time.perf_counter() - t_phase)
+    assert failed["swap_failure_raised"] and failed["swap_failure_epoch_bumps"] == 1, failed
+    assert failed["swap_failure_bindings_restored"] and failed["swap_failure_pending_kept"], failed
+    assert out["epoch_bumps"] == 1 and edge.epoch == epoch0 + 1, out
+    assert out["pending_requests"] == len(reqs), out
+    assert stats["completed"] == len(served) == len(reqs) and stats["skipped"] == 0, stats
+    return launches, routes
+
+
+def small_cnn_lifecycle_phases(torch) -> tuple:
+    """The ported ``drift_adapt`` and ``overload`` benches at their own
+    small-CNN scale on the card (inputs drawn from numpy), each with its
+    scripts/ci.sh gates.  Returns (kernel launches of both, their routes)."""
+    from repro_torch.bench import drift_adapt as D
+    from repro_torch.bench import overload as O
+    from repro_torch.kernels import ops
+
+    launches, routes = collections.Counter(), collections.defaultdict(collections.Counter)
+
+    def take():
+        launches.update(ops.kernel_launches())
+        for name, r in ops.route_launches().items():
+            routes[name].update(r)
+
+    t_phase = start_phase(torch, "drift_adapt")
+    ops.reset_kernel_launches()
+    _, derived, _, _ = D.evaluate(D.numpy_scenario(device="cuda"))
+    take()
+    gates = D.gates(derived)
+    emit("drift_adapt", derived=derived, gates=gates, launches=ops.kernel_launches(),
+         seconds=time.perf_counter() - t_phase)
+    assert all(gates.values()), {k: v for k, v in gates.items() if not v}
+
+    t_phase = start_phase(torch, "overload")
+    ops.reset_kernel_launches()
+    rows, derived = O.evaluate(O.build_stack(device="cuda"))
+    take()
+    gates = O.gates(derived)
+    emit("overload", derived=derived, gates=gates,
+         lanes={r["lane"]: {k: r[k] for k in ("offered", "completed", "gate_completed",
+                                              "shed_oldest", "shed_newest", "lost",
+                                              "max_depth", "effective_accuracy")}
+                for r in rows},
+         launches=ops.kernel_launches(), seconds=time.perf_counter() - t_phase)
+    assert all(gates.values()), {k: v for k, v in gates.items() if not v}
+    return dict(launches), {k: dict(v) for k, v in routes.items()}
+
+
+# ---------------------------------------------------------------------------
+# phase 10: joint retraining on the card
 # ---------------------------------------------------------------------------
 
 
@@ -1697,6 +1954,11 @@ def main() -> int:
                  reference_gate=">= 2.0", asserted=False)
         del eng, store  # the next family's start_phase frees this one's store
     add(*stablelm_plan_phase(torch, stablelm_1_6b.full_config(), int(16e9)))
+    *run, drift_loop = stablelm_drift_phase(torch, stablelm_1_6b.full_config())
+    add(*run)
+    add(*stablelm_swap_failure_phase(torch, drift_loop))
+    del drift_loop, run
+    add(*small_cnn_lifecycle_phases(torch))
     t0 = start_phase(torch, "small_cnn_retrain")
     small_cnn_retrain_phase(torch)
     emit("phase_end", name="small_cnn_retrain", seconds=time.perf_counter() - t0)

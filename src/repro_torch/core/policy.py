@@ -380,6 +380,38 @@ class MergeEvent:
     objective: Optional[float] = None  # simulator-in-the-loop score, if set
 
 
+@dataclasses.dataclass(frozen=True)
+class CascadeProfile:
+    """Observed cascade behaviour of the serving front end, as planner
+    input: per-instance heavy-path hit rates (the fraction of offered frames
+    the gate sends to the heavy merged group) and the accuracy credit a
+    gate-only completion earns.  Built from a ``CascadeGate``'s observed
+    hit rates (``bench/overload.py``) and consumed by
+    ``serving.simulator.effective_accuracy_objective(cascade=...)``: when
+    only 40% of a camera's frames reach the heavy model, its residency is
+    worth proportionally less swap pressure."""
+
+    rates: dict  # instance_id -> hit rate in [0, 1]
+    gate_accuracy: dict  # instance_id -> gate-only accuracy credit in [0, 1]
+
+    def simulator_arg(self) -> dict:
+        """The ``cascade=`` mapping ``simulator.simulate`` consumes:
+        {instance_id: (hit_rate, gate_accuracy)}."""
+        return {iid: (float(self.rates[iid]), float(self.gate_accuracy.get(iid, 0.0)))
+                for iid in self.rates}
+
+    def to_json(self, indent: Optional[int] = None) -> str:
+        return json.dumps({
+            "rates": {k: float(v) for k, v in sorted(self.rates.items())},
+            "gate_accuracy": {k: float(v) for k, v in sorted(self.gate_accuracy.items())},
+        }, indent=indent)
+
+    @classmethod
+    def from_json(cls, payload: str) -> "CascadeProfile":
+        obj = json.loads(payload)
+        return cls(dict(obj["rates"]), dict(obj["gate_accuracy"]))
+
+
 @dataclasses.dataclass
 class PlanResult:
     store: ParamStore
@@ -417,8 +449,12 @@ class StagedPlanner:
        candidate.
 
     Timing is injectable (``clock=``) so event traces are deterministic
-    under test.  The result carries a :class:`MergePlan`
-    built from the committed groups (``ParamStore.export_plan``)."""
+    under test.  Warm start
+    (§5.1 step 5, "merging resumes from the previously deployed state"):
+    ``exclude_models`` leaves breached or quarantined members out of the
+    search, and ``seed_plan``'s committed groups are re-attempted first.
+    The result carries a :class:`MergePlan` built from the committed groups
+    (``ParamStore.export_plan``)."""
 
     def __init__(
         self,
@@ -431,6 +467,8 @@ class StagedPlanner:
         objective: Optional[Callable] = None,  # (store, groups) -> float
         clock: Callable[[], float] = time.monotonic,
         plan_weights: bool = True,
+        exclude_models: Optional[set] = None,
+        seed_plan: Optional[MergePlan] = None,
     ):
         self.store = store
         self.models = {m.model_id: m for m in models}
@@ -444,15 +482,38 @@ class StagedPlanner:
         # commits new values, so a weightless plan would rebuild the
         # pre-retraining configuration on the edge
         self.plan_weights = plan_weights
+        self.exclude_models = set(exclude_models or ())
+        self.seed_plan = seed_plan
         self.pruned_candidates: list = []
         self._trainer_takes_group: Optional[bool] = None
 
     # -- stage 1+2: enumerate and score ---------------------------------------
 
+    def _seed_groups(self) -> list:
+        """Committed groups of the previously deployed plan, minus excluded
+        members — already validated configurations, re-attempted FIRST and
+        in their original commit order.  They bypass the prefilter (they
+        survived retraining once) and supersede the same-signature
+        enumerated candidates (resume, don't re-litigate the last search)."""
+        if self.seed_plan is None:
+            return []
+        seeds = []
+        for g in self.seed_plan.layer_groups():
+            g = g.without_models(self.exclude_models)
+            if len(g.records) >= 2 and any(len(c) >= 2 for c in g.columns()):
+                seeds.append(g)
+        return seeds
+
     def candidates(self) -> list:
-        kept, pruned = self.scorer.prefilter(enumerate_groups(self.records))
+        records = [r for r in self.records if r.model_id not in self.exclude_models]
+        kept, pruned = self.scorer.prefilter(enumerate_groups(records))
         self.pruned_candidates = pruned
-        return self.scorer.order(kept)
+        ordered = self.scorer.order(kept)
+        seeds = self._seed_groups()
+        if not seeds:
+            return ordered
+        seed_sigs = {g.signature for g in seeds}
+        return seeds + [g for g in ordered if g.signature not in seed_sigs]
 
     # -- rollback support ------------------------------------------------------
 
@@ -559,13 +620,13 @@ class StagedPlanner:
 
     def _provenance(self, events, attempted, committed, discarded, baseline,
                     best_obj) -> dict:
-        # the JAX package's schema: a cold start over every model and no
-        # per-attempt budget
+        # the JAX package's schema; with no per-attempt budget a re-plan
+        # never times out
         prov = {
             "planner": type(self).__name__,
             "scorer": self.scorer.name,
-            "warm_start": False,
-            "excluded": [],
+            "warm_start": self.seed_plan is not None,
+            "excluded": sorted(self.exclude_models),
             "attempted": attempted,
             "committed": committed,
             "discarded": discarded,

@@ -5,9 +5,9 @@
   batch per visit of the round robin, a synchronous (modelled) DMA stall
   before each swap, and a per-request decode lane on a contiguous cache;
 * :class:`MergeAwareEngine` — the merge-aware hot path: shared prefix,
-  suffix bank, async DMA prefetch, the streaming decode lane and the hot
-  MergePlan swap.  The drift ``revert`` and the sharded bank wait for
-  later slices.
+  suffix bank, async DMA prefetch, the streaming decode lane, the hot
+  MergePlan swap and the drift ``revert``.  The sharded bank waits for a
+  later slice.
 
 PyTorch runs eagerly, so there is nothing to compile: where the JAX
 executors block on ``jax.block_until_ready`` these synchronise the device
@@ -475,12 +475,13 @@ class MergeAwareEngine:
         self._groups_epoch = self.store.epoch
         return groups
 
-    # -- hot plan swap ---------------------------------------------------------
+    # -- hot plan swap / revert ------------------------------------------------
 
     def rebind_instances(self) -> dict:
         """Rebuild scheduler instances from the store's CURRENT bindings
         (cost id and accuracy carried over per instance) and swap them in
-        via ``Scheduler.rebind``, which keeps residency for surviving keys."""
+        via ``Scheduler.rebind``, which keeps residency for surviving keys —
+        the shared tail of ``apply_plan`` and ``revert``."""
         kb_by_model: dict = {}  # store model -> {key: bytes}, computed once
         insts = []
         for iid, inst in self.scheduler.instances.items():
@@ -533,6 +534,32 @@ class MergeAwareEngine:
             **rebind,
         }
 
+    def revert(self, monitor, report) -> dict:
+        """Revert breached models to their original weights on the LIVE
+        engine (§5.1 step 5) — the drift-side twin of ``apply_plan``, with
+        the same no-drain guarantees:
+
+        1. ``DriftMonitor.revert`` stages every breached model's private
+           rebind and commits with a *single* epoch bump — cached trees, the
+           prefix-group plan AND the suffix banks (cached in the same store
+           cache ``bump_epoch`` clears) invalidate exactly once;
+        2. scheduler instances are rebuilt from the post-revert bindings;
+           shared keys the surviving members still reference stay resident
+           (``Scheduler.rebind``), so only the reverted model pays its
+           private bytes;
+        3. queues are untouched: requests queued at breach time are served
+           against the reverted bindings on the next pass, never dropped."""
+        epoch0 = self.store.epoch
+        pending = sum(len(q) for q in self.queues.values())
+        monitor.revert(report)
+        rebind = self.rebind_instances()
+        return {
+            "reverted": sorted(report.reverted),
+            "epoch_bumps": self.store.epoch - epoch0,
+            "pending_requests": pending,
+            **rebind,
+        }
+
     # -- queue plumbing --------------------------------------------------------
 
     def submit(self, req: Request):
@@ -574,9 +601,12 @@ class MergeAwareEngine:
                 block_until_ready(bank_out)
                 slot = {iid: i for i, iid in enumerate(group)}
                 done = self.clock() - t0
+                # each completion owns a copy of its row, as the JAX
+                # package's indexing gives one: a view would keep the whole
+                # micro-batch output alive as long as any completion is
                 for j, r in enumerate(mb.requests):
                     self.completions.append(
-                        Completion(r, bank_out[slot[r.instance_id], j], done))
+                        Completion(r, bank_out[slot[r.instance_id], j].clone(), done))
                 continue
             rows_by_iid: dict = {}
             for j, r in enumerate(mb.requests):
@@ -609,7 +639,7 @@ class MergeAwareEngine:
             done = self.clock() - t0
             for j, r in enumerate(mb.requests):
                 row = pos[r.instance_id][j]
-                self.completions.append(Completion(r, outs[r.instance_id][row], done))
+                self.completions.append(Completion(r, outs[r.instance_id][row].clone(), done))
 
     def _warmup(self, payload) -> None:
         """Run every (group, bucket) path once before the SLA clock starts:

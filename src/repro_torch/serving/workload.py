@@ -80,13 +80,16 @@ def instances_from_store(
     cost_ids,  # str (one cost-table id for all) or {model_id: cost_id}
     model_ids: Optional[list] = None,
     accuracies: Optional[dict] = None,
+    key_bytes_fn=None,  # (key, real_bytes) -> bytes (e.g. paper-scale rescale)
 ) -> list:
     """Scheduler Instances straight from a live ParamStore: each model's key
-    set is its *current* bindings and key bytes are the real buffer sizes."""
+    set is its *current* bindings and key bytes are the real buffer sizes
+    unless ``key_bytes_fn`` rescales them."""
     ids = model_ids if model_ids is not None else sorted(store.bindings)
     out = []
     for mid in ids:
-        kb = {k: leaf_bytes(store.buffers[k]) for k in store.keys_for(mid)}
+        kb = {k: (key_bytes_fn(k, leaf_bytes(store.buffers[k])) if key_bytes_fn
+                  else leaf_bytes(store.buffers[k])) for k in store.keys_for(mid)}
         cost = cost_ids if isinstance(cost_ids, str) else cost_ids[mid]
         out.append(Instance(mid, cost, frozenset(kb), kb,
                             accuracy=(accuracies or {}).get(mid, 1.0)))

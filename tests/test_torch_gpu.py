@@ -941,3 +941,168 @@ def test_edge_executor_bf16_serve_strays_from_float32_no_more_than_the_cpu(cuda_
     print(f"edge bf16 serve, max and RMS gap to float32: card {card_gap}, cpu {host_gap}, "
           f"card to cpu bf16 {gap(card, host)}, elements {sum(r.numel() for r in f32.values())}")
     assert card_gap[0] <= 2 * host_gap[0] and card_gap[1] <= 2 * host_gap[1], (card_gap, host_gap)
+
+
+def _merged_small_cnn_trio(device):
+    """Three small-CNN members on ``device`` with every trunk group merged,
+    and a monitor over their originals."""
+    from repro_torch.core import ParamStore, RegisteredModel, enumerate_groups
+    from repro_torch.core.drift import DriftMonitor
+    from repro_torch.models.registry import get_adapter
+
+    adapter = get_adapter("small_cnn")
+    cfg = adapter.default_config()
+    zoo = {m: adapter.init(cfg, seed=i, device=device) for i, m in enumerate("ABC")}
+    store = ParamStore.from_models(dict(zoo))
+    trunk = adapter.split(cfg).prefix_paths
+    recs = [r for m, p in zoo.items() for r in adapter.records(cfg, p, m) if r.path in trunk]
+    for g in enumerate_groups(recs):
+        store.merge_group(g)
+    regs = [RegisteredModel(m, lambda p, b: 0.0, lambda p, b: 1.0, lambda e: [], None, 0.9, 1.0)
+            for m in zoo]
+    return adapter, cfg, zoo, store, DriftMonitor(store, dict(zoo), regs)
+
+
+@pytest.mark.gpu
+def test_drift_revert_on_a_cuda_store_keeps_survivors_shared_buffers(cuda_device):
+    from repro_torch.core.drift import DriftReport
+
+    _, _, zoo, store, monitor = _merged_small_cnn_trio(cuda_device)
+    shared = {k: store.buffers[k] for k in store.shared_keys()}
+    assert shared and all(t.is_cuda for t in shared.values())
+    epoch0 = store.epoch
+    monitor.revert(DriftReport({}, {"B"}, set()))
+    assert store.epoch == epoch0 + 1
+    for k, t in shared.items():
+        assert store.buffers[k] is t  # the same tensors, not copies
+        assert k in set(store.bindings["A"].values()) and k in set(store.bindings["C"].values())
+    assert all(key == f"B:{path}" for path, key in store.bindings["B"].items())
+    assert store.materialize("B")["stem"]["w"] is zoo["B"]["stem"]["w"]
+    assert set(store.buffers) == {k for b in store.bindings.values() for k in b.values()}
+
+
+@pytest.mark.gpu
+def test_swap_failure_rolls_back_on_a_cuda_store(cuda_device):
+    from repro_torch.core import MergePlan, ParamStore
+    from repro_torch.serving.costs import costs_for
+    from repro_torch.serving.executor import (
+        MergeAwareEngine, ModelProgram, PlanApplyError, Request,
+    )
+    from repro_torch.serving.faults import FaultInjector
+    from repro_torch.serving.workload import instances_from_store
+
+    adapter, cfg, zoo, cloud, _ = _merged_small_cnn_trio(cuda_device)
+    plan = MergePlan.from_json(cloud.export_plan(_trunk_groups_of(adapter, cfg, zoo),
+                                                 include_weights=True).to_json())
+    store = ParamStore.from_models(dict(zoo))
+    eng = MergeAwareEngine(store, instances_from_store(store, "tiny-yolo", model_ids=list(zoo)),
+                           [ModelProgram.from_adapter(adapter, m, cfg=cfg) for m in zoo],
+                           capacity_bytes=10 ** 9, costs={"tiny-yolo": costs_for("tiny-yolo")},
+                           buckets=(1, 2, 4))
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    for i in range(6):
+        eng.submit(Request("ABC"[i % 3], torch.randn((1, 32, 32, 3), generator=gen,
+                                                     device=cuda_device), 0.0, 60.0))
+    epoch0 = store.epoch
+    bind0 = {m: dict(b) for m, b in store.bindings.items()}
+    buffers0 = dict(store.buffers)
+    FaultInjector().arm_swap_failure(store, fail_after_columns=1)
+    with pytest.raises(PlanApplyError):
+        eng.apply_plan(plan)
+    assert store.epoch == epoch0 + 1 and store.bindings == bind0
+    assert set(store.buffers) == set(buffers0)
+    assert all(store.buffers[k] is t for k, t in buffers0.items())
+    assert sum(len(q) for q in eng.queues.values()) == 6
+    out = eng.apply_plan(plan)
+    assert out["epoch_bumps"] == 1 and out["pending_requests"] == 6
+    assert all(store.buffers[k].is_cuda for k in out["shared_keys"])
+    stats = eng.serve(horizon_s=60.0)
+    assert stats["completed"] == 6 and eng.skipped == 0
+
+
+def _trunk_groups_of(adapter, cfg, zoo):
+    from repro_torch.core import enumerate_groups
+
+    trunk = adapter.split(cfg).prefix_paths
+    return enumerate_groups([r for m, p in zoo.items() for r in adapter.records(cfg, p, m)
+                             if r.path in trunk])
+
+
+def _reverted_serve_rows(adapter, cfg, zoo, new_b, device, tokens):
+    """A merged dense trio on ``device``, its member B reverted to ``new_b``
+    through the engine's ``revert`` with ``tokens`` queued (B's every other
+    request), then served: B's rows by request as float32 on the CPU, and
+    the serve's launches."""
+    from repro_torch.core import ParamStore, RegisteredModel
+    from repro_torch.core.drift import DriftMonitor, DriftReport
+    from repro_torch.serving.costs import costs_for
+    from repro_torch.serving.executor import MergeAwareEngine, ModelProgram, Request
+    from repro_torch.serving.workload import instances_from_store
+    from repro_torch.utils.tree import flatten_paths, unflatten_paths
+
+    def on(p):
+        return unflatten_paths({k: v.to(device) for k, v in flatten_paths(p).items()})
+
+    originals = {m: on(p) for m, p in zoo.items()}
+    store = ParamStore.from_models(dict(originals))
+    for g in _trunk_groups_of(adapter, cfg, originals):
+        store.merge_group(g)
+    eng = MergeAwareEngine(store, instances_from_store(store, "tiny-yolo", model_ids=list(zoo)),
+                           [ModelProgram.from_adapter(adapter, m, cfg=cfg) for m in zoo],
+                           capacity_bytes=10 ** 9, costs={"tiny-yolo": costs_for("tiny-yolo")},
+                           buckets=(1, 2, 4))
+    for i, t in enumerate(tokens):
+        eng.submit(Request("ABCB"[i % 4], t.to(device), 0.0, 60.0 + i * 1e-3, meta=i))
+    originals["B"] = on(new_b)
+    regs = [RegisteredModel(m, lambda p, b: 0.0, lambda p, b: 1.0, lambda e: [], None, 0.9, 1.0)
+            for m in zoo]
+    out = eng.revert(DriftMonitor(store, originals, regs), DriftReport({}, {"B"}, set()))
+    assert out["epoch_bumps"] == 1 and out["pending_requests"] == len(tokens)
+    ops.reset_kernel_launches()
+    stats = eng.serve(horizon_s=120.0, warmup=tokens[0].to(device))
+    assert stats["completed"] == len(tokens) and eng.skipped == 0
+    return ({c.request.meta: c.result.float().cpu() for c in eng.completions
+             if c.request.instance_id == "B"}, ops.kernel_launches())
+
+
+@pytest.mark.gpu
+def test_engine_revert_serves_the_new_original_within_the_bf16_allowance(cuda_device):
+    """The engine's ``revert`` on a merged bf16 dense trio on the card: the
+    reverted member's served rows against float32 rows of the same (bf16
+    valued) weights on the CPU, to twice the gap the CPU's own bf16 serve
+    shows against them, at the largest element and in RMS — the allowance
+    of the bf16 ``EdgeExecutor`` test above.  The gaps are printed (``-s``)."""
+    import dataclasses
+
+    from repro_torch.models.registry import get_adapter
+    from repro_torch.models.transformer import DenseLMConfig
+    from repro_torch.utils.tree import flatten_paths, unflatten_paths
+
+    adapter = get_adapter("dense")
+    cfg = DenseLMConfig(name="gpu-lm", n_layers=2, d_model=128, n_heads=4, n_kv_heads=2,
+                        head_dim=64, d_ff=256, vocab_size=300, rotary_pct=0.25,
+                        norm="layernorm", dtype="bfloat16")
+    cpu = torch.device("cpu")
+    zoo = {m: adapter.init(cfg, seed=i, device=cpu) for i, m in enumerate("ABC")}
+    new_b = adapter.init(cfg, seed=9, device=cpu)
+
+    def f32(p):
+        return unflatten_paths({k: v.float() for k, v in flatten_paths(p).items()})
+
+    g = torch.Generator().manual_seed(6)
+    tokens = [torch.randint(0, cfg.vocab_size, (1, 16), generator=g) for _ in range(8)]
+    card, launches = _reverted_serve_rows(adapter, cfg, zoo, new_b, cuda_device, tokens)
+    host, host_launches = _reverted_serve_rows(adapter, cfg, zoo, new_b, cpu, tokens)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    with torch.no_grad():
+        want = {i: adapter.forward(cfg32, f32(new_b), tokens[i])[0] for i in card}
+    assert launches["flash_attention"] > 0 and not any(host_launches.values())
+    assert sorted(card) == sorted(host) == [i for i in range(len(tokens)) if i % 2 == 1]
+
+    def gap(rows):
+        d = torch.stack([rows[i] - want[i] for i in sorted(want)])
+        return d.abs().max().item(), d.pow(2).mean().sqrt().item()
+
+    card_gap, host_gap = gap(card), gap(host)
+    print(f"reverted bf16 serve, max and RMS gap to float32: card {card_gap}, cpu {host_gap}")
+    assert card_gap[0] <= 2 * host_gap[0] and card_gap[1] <= 2 * host_gap[1], (card_gap, host_gap)
