@@ -89,6 +89,20 @@ device memory still allocated and closes with its seconds):
    against direct forwards, shared buffers bitwise the cloud's (by
    digest), resident bytes no more than the hand merge of lm-A/B/D plus
    lm-C unmerged, tensor-core routes only;
+8b. the LM benches at full stablelm-1.6b width: ``stablelm_lm_serve``
+   (``repro_torch.bench.lm_merging``: the JAX bench's five members, lm-C
+   foreign, planned, shipped and served unmerged, merged per member and
+   merged through the bank; the structural suffix-bank gates of
+   scripts/ci.sh, each member's argmax agreement with its original,
+   ``bank_speedup_rps`` beside the JAX gate of 1.5) and
+   ``stablelm_decode_serve`` (``repro_torch.bench.decode_serve`` on that
+   zoo and plan: the per-request lane, the merged paged lane, its
+   replay and the mid-decode hot swap; the structural D1 gates, the
+   replay at 2e-2 of the row maximum, graph replays in both lanes;
+   ``decode_speedup`` beside the JAX gate of 2 with each lane's wall and
+   device time a step and idle share).  The decode steps of phase 7,
+   phase 6's per-request lane and these lanes replay CUDA graphs
+   (``repro_torch.serving.graphs``);
 9. GEMEL's drift loop (``repro_torch.bench.drift_adapt``) on seven
    full-width stablelm-1.6b members (``stablelm_drift``): first the
    pre-drift agreement that lm_zoo's recipe (trunk + 0.005) leaves each
@@ -110,7 +124,9 @@ device memory still allocated and closes with its seconds):
    deployed plan's apply raises with one epoch bump, bindings restored and
    the queue kept, and a clean re-apply serves it.  Then the ported
    ``drift_adapt`` and ``overload`` benches at their small-CNN scale,
-   each with its scripts/ci.sh gates;
+   each with its scripts/ci.sh gates, and after them the ported
+   ``serve_throughput`` (240 requests, with the per-member suffix lane)
+   and ``plan_search`` benches with theirs;
 10. joint retraining on the card (``small_cnn_retrain``):
    ``examples/quickstart.py``'s two pretrained small CNNs through
    ``IncrementalMerger`` with ``MergeTrainer``; each attempt's shared
@@ -685,36 +701,17 @@ def small_cnn_phase(torch) -> None:
 # ---------------------------------------------------------------------------
 
 
-def perturb(torch, params: dict, seed: int, scale: float, select) -> dict:
-    """Gaussian-perturb the leaves whose path ``select`` accepts (others are
-    passed through as the same tensors) — fine-tuning divergence without a
-    training run, generated on the leaves' device."""
-    from repro_torch.utils.tree import flatten_paths, unflatten_paths
-
-    flat = flatten_paths(params)
-    gen = torch.Generator(device=next(iter(flat.values())).device).manual_seed(seed)
-    out = {}
-    for path in sorted(flat):
-        leaf = flat[path]
-        if select(path):
-            noise = torch.randn(leaf.shape, generator=gen, device=leaf.device)
-            leaf = leaf + scale * noise.to(leaf.dtype)
-        out[path] = leaf
-    return unflatten_paths(out)
-
-
-def is_lm_head(path: str) -> bool:
-    return path.startswith(("final_norm/", "lm_head/"))
-
-
 def lm_zoo(torch, adapter, cfg, mids=LM_MIDS, trunk_scale: float = 0.005) -> dict:
     """Variants of one base: trunks perturbed by ``trunk_scale`` (0.005, the
-    ``lm_zoo`` pattern of benchmarks/lm_merging.py), heads by 1.0."""
+    ``lm_zoo`` pattern of benchmarks/lm_merging.py), heads by 1.0, drawn
+    on the card (``bench.lm_merging.perturb``)."""
+    from repro_torch.bench.lm_merging import is_head, perturb
+
     base = adapter.init(cfg, seed=0, device="cuda")
     zoo = {mids[0]: base}
     for i, mid in enumerate(mids[1:]):
-        v = perturb(torch, base, 2 * i + 1, trunk_scale, lambda p: not is_lm_head(p))
-        zoo[mid] = perturb(torch, v, 2 * i + 2, 1.0, is_lm_head)
+        v = perturb(base, 2 * i + 1, trunk_scale, lambda p: not is_head(p))
+        zoo[mid] = perturb(v, 2 * i + 2, 1.0, is_head)
         del v
     return zoo
 
@@ -1509,6 +1506,7 @@ def merged_agreement(torch, adapter, cfg, trunk_scale: float) -> dict:
     trunk as the planner merges them: the fraction of period 0's probe
     positions where the merged member's argmax equals its original's, by
     member.  One variant is resident at a time."""
+    from repro_torch.bench.lm_merging import is_head, perturb
     from repro_torch.utils.tree import flatten_paths, unflatten_paths
 
     base = adapter.init(cfg, seed=0, device="cuda")
@@ -1516,10 +1514,10 @@ def merged_agreement(torch, adapter, cfg, trunk_scale: float) -> dict:
     tokens = lm_probe(torch, cfg, 0)
     out = {}
     for i, mid in enumerate(DRIFT_MIDS[1:]):
-        v = perturb(torch, base, 2 * i + 1, trunk_scale, lambda p: not is_lm_head(p))
-        original = perturb(torch, v, 2 * i + 2, 1.0, is_lm_head)
+        v = perturb(base, 2 * i + 1, trunk_scale, lambda p: not is_head(p))
+        original = perturb(v, 2 * i + 2, 1.0, is_head)
         del v
-        merged = unflatten_paths({p: leaf if is_lm_head(p) else base_flat[p]
+        merged = unflatten_paths({p: leaf if is_head(p) else base_flat[p]
                                   for p, leaf in flatten_paths(original).items()})
         want = adapter.forward(cfg, original, tokens).argmax(-1)
         out[mid] = (adapter.forward(cfg, merged, tokens).argmax(-1) == want).float().mean().item()
@@ -1714,6 +1712,242 @@ def small_cnn_lifecycle_phases(torch) -> tuple:
          launches=ops.kernel_launches(), seconds=time.perf_counter() - t_phase)
     assert all(gates.values()), {k: v for k, v in gates.items() if not v}
     return dict(launches), {k: dict(v) for k, v in routes.items()}
+
+
+def host_bench_phases(torch) -> tuple:
+    """The ported ``serve_throughput`` (240 requests, with the nobank lane)
+    and ``plan_search`` benches at their own small-CNN defaults on the card
+    (inputs drawn from numpy), each with the gates scripts/ci.sh holds it
+    to; serve_throughput's timed ``speedup_rps`` and ``bank_speedup_rps``
+    are printed.  Returns (kernel launches of both, their routes)."""
+    from repro_torch.bench import plan_search as PSB
+    from repro_torch.bench import serve_throughput as STB
+    from repro_torch.kernels import ops
+
+    launches, routes = collections.Counter(), collections.defaultdict(collections.Counter)
+
+    def take():
+        launches.update(ops.kernel_launches())
+        for name, r in ops.route_launches().items():
+            routes[name].update(r)
+
+    t_phase = start_phase(torch, "serve_throughput")
+    ops.reset_kernel_launches()
+    rows, derived = STB.evaluate(STB.numpy_inputs(device="cuda"), n_requests=240)
+    take()
+    gates = STB.gates(derived)
+    emit("serve_throughput", rows=rows, derived=derived, gates=gates,
+         timed=dict(speedup_rps=derived["speedup_rps"], reference_target=">= 2.0",
+                    bank_speedup_rps=derived["bank_speedup_rps"], asserted=False),
+         launches=ops.kernel_launches(), route_launches=ops.route_launches(),
+         seconds=time.perf_counter() - t_phase)
+    assert all(gates.values()), gates
+
+    t_phase = start_phase(torch, "plan_search")
+    ops.reset_kernel_launches()
+    rows, derived, _ = PSB.evaluate(PSB.numpy_inputs(device="cuda"))
+    take()
+    gates = PSB.gates(derived)
+    emit("plan_search", rows=rows, derived=derived, gates=gates, launches=ops.kernel_launches(),
+         seconds=time.perf_counter() - t_phase)
+    assert all(gates.values()), gates
+    return dict(launches), {k: dict(v) for k, v in routes.items()}
+
+
+# ---------------------------------------------------------------------------
+# the LM bench ports at full width: S2 (benchmarks/lm_merging.py's
+# merge-and-serve with the suffix bank) and D1 (benchmarks/decode_serve.py's
+# streaming decode against the per-request lane)
+# ---------------------------------------------------------------------------
+
+
+def stablelm_lm_serve_phase(torch, cfg) -> tuple:
+    """``bench.lm_merging.merge_and_serve`` on full-width stablelm-1.6b
+    (``stablelm_lm_serve``) on the bench's own scenario
+    (``numpy_scenario``: the JAX bench's five members, the zoo drawn on the
+    card, the tokens from numpy), the
+    CKA-prefiltered plan with the coherence surrogate (``min_similarity``
+    0.7) shipped as JSON, then the unmerged, merged per-member and
+    merged-bank lanes on stores over the one zoo, each built and dropped in
+    turn, at a capacity that holds the unmerged zoo (nothing swaps; the
+    modelled DMA of first loads is on, as in the JAX bench).  Gates:
+    scripts/ci.sh's structural S2 gates, a cross-variant group, bytes
+    saved, one epoch bump, every served row bitwise its replay of the
+    engine's own dispatch (``verify_bitwise``) and every banked row within
+    2e-2 of the member's own suffix.  Printed: each member's argmax
+    agreement with its original over its own requests' positions, and
+    ``bank_speedup_rps`` beside the JAX gate of 1.5.  Returns (kernel
+    launches of the phase, their routes, the scenario, the shipped plan)."""
+    from repro_torch.bench import lm_merging as LMB
+    from repro_torch.kernels import ops
+
+    t_phase = start_phase(torch, "stablelm_lm_serve")
+    t0 = time.perf_counter()
+    scn = LMB.numpy_scenario(cfg, "cuda")
+    adapter = scn.adapter
+    torch.cuda.synchronize()
+    zoo_s = time.perf_counter() - t0
+    ops.reset_kernel_launches()
+    shipped = LMB.ship_plan(scn)
+    lanes, agreement = {}, {}
+
+    def on_lane(name, eng, stats):
+        lanes[name] = dict(requests_per_s=stats["requests_per_s"], elapsed_s=stats["elapsed_s"],
+                           microbatches=stats["microbatches"],
+                           suffix_dispatches=stats["suffix_dispatches"],
+                           dma_stall_s=stats["dma_stall_s"], dma_hidden_s=stats["dma_hidden_s"],
+                           resident_bytes=eng.store.resident_bytes())
+        if name != "merged-plan-bank":
+            return
+        with torch.no_grad():
+            for i, m in enumerate(scn.mids):
+                tokens = torch.cat([scn.payload(i, j) for j in range(LMB.REQS_PER_MODEL)])
+                want = adapter.forward(cfg, scn.zoo[m], tokens).argmax(-1)
+                got = adapter.forward(cfg, eng.store.materialize(m), tokens).argmax(-1)
+                agreement[m] = (got == want).float().mean().item()
+
+    t0 = time.perf_counter()
+    rows, derived = LMB.merge_and_serve(scn, shipped=shipped, on_lane=on_lane)
+    torch.cuda.synchronize()
+    lanes_s = time.perf_counter() - t0
+    launches, routes = ops.kernel_launches(), ops.route_launches()
+    tensor_core_routes_only(routes)
+    assert launches["bank_matmul"] > 0 and launches["flash_attention"] > 0, launches
+    gates = dict(LMB.gates(derived))
+    gates["epoch_bumps == 1"] = derived["epoch_bumps"] == 1
+    gates["bank_gap <= 2e-2"] = derived["bank_gap"] <= TOL["bfloat16"]["atol"]
+    res = shipped["result"]
+    emit("stablelm_lm_serve", config=cfg.name, members=list(scn.mids), rows=rows,
+         derived=derived, gates=gates,
+         timed=dict(bank_speedup_rps=derived["bank_speedup_rps"], reference_gate=">= 1.5",
+                    throughput_ratio=derived["throughput_ratio"], asserted=False),
+         argmax_agreement_with_original=agreement, lanes=lanes, plan_groups=len(res.plan.groups),
+         seconds_cloud=shipped["seconds"], zoo_s=zoo_s, lanes_s=lanes_s, launches=launches,
+         route_launches=routes, seconds=time.perf_counter() - t_phase)
+    assert all(gates.values()), {k: v for k, v in gates.items() if not v}
+    return launches, routes, scn, shipped["plan"]
+
+
+def profile_lane(torch, rerun, range_name: str) -> tuple:
+    """``rerun()`` — a decode lane served once more on the same executor or
+    engine — under ``torch.profiler``, its kernel launches taken off the
+    counts.  Returns (the device's busy ms inside the lane's profiler range
+    ``range_name``, which spans its timed loop and leaves the warm-up and
+    the captures before it out; the rerun's stats)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving.graphs import uncounted
+
+    torch.cuda.synchronize()
+    with uncounted(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        stats = rerun()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    (lane,) = [e for e in events if e.name == range_name and e.device_type != cuda]
+    lo, hi = lane.time_range.start, lane.time_range.end
+    # the range's own mirror on the device timeline is an annotation, not work
+    busy_us = sum(e.time_range.elapsed_us() for e in events
+                  if e.device_type == cuda and e.name != range_name
+                  and lo <= e.time_range.start <= hi)
+    return busy_us / 1e3, stats
+
+
+def stablelm_decode_serve_phase(torch, scn, plan) -> tuple:
+    """``bench.decode_serve.run_lanes`` on ``stablelm_lm_serve``'s zoo and
+    plan at the JAX bench's sizes (``stablelm_decode_serve``): 16 requests
+    per member of 4 prompt and 12 new tokens; pages of 8, 128 pages, 32
+    slots, buckets 1-32; the per-request lane (``EdgeExecutor``, capacity
+    for the whole unmerged zoo), the merged paged lane, its logits-recording
+    pass replayed through the unpaged decode, and the mid-decode hot swap
+    after step 4, each on its own store over the zoo, in turn.  Both decode
+    lanes replay CUDA graphs.  Gates: every structural D1 gate of
+    scripts/ci.sh, the replay within 2e-2 of each row's maximum with no
+    confident argmax flip (``decode_serve.replay_check``) in place of
+    bitwise, graph replays in both lanes.  Printed: ``decode_speedup``
+    beside the gate of 2, and for each decode lane its wall per step, the
+    modelled DMA seconds in its wall time, and the device's busy time a
+    step and idle share: the lane is served once more on the same executor
+    or engine under ``torch.profiler`` (``profile_lane``; its models are
+    resident by then, so it sleeps no DMA) — the merged lane whole, the
+    per-request lane on a window of one request per member (60 of its 960
+    steps, all of one shape: the trace of all 960 takes minutes to read)
+    — and the busy time a step of that rerun's timed loop is held against
+    the rerun's own wall (``_profiled``, which the profiler slows) and
+    against the unprofiled lane's wall, with and without the lane's
+    modelled DMA.  Returns (kernel launches of the phase, their routes)."""
+    from repro_torch.bench import decode_serve as DSB
+    from repro_torch.kernels import ops
+    from repro_torch.serving.costs import PCIE_GBPS
+    from repro_torch.serving.executor import ModelProgram
+
+    t_phase = start_phase(torch, "stablelm_decode_serve")
+    ops.reset_kernel_launches()
+    lanes = {}
+    last = [collections.Counter()]
+    reqs = DSB.decode_requests(scn, DSB.REQS_PER_MODEL, DSB.PROMPT_LEN, DSB.MAX_NEW)
+    window = DSB.decode_requests(scn, 1, DSB.PROMPT_LEN, DSB.MAX_NEW)
+    programs = [ModelProgram.from_adapter(scn.adapter, m, cfg=scn.cfg) for m in scn.mids]
+    reruns = {
+        "per-request-baseline": (
+            lambda ex: ex.serve_decode(window, programs, max_len=DSB.MAX_LEN),
+            "EdgeExecutor.serve_decode.lane"),
+        "merged-paged-continuous": (
+            lambda eng: eng.serve_decode(
+                reqs, page_size=DSB.PAGE_SIZE, num_pages=DSB.NUM_PAGES,
+                max_slots=DSB.MAX_SLOTS, max_len=DSB.MAX_LEN, buckets=DSB.BUCKETS),
+            "StreamingDecoder.run.steps")}
+
+    def on_lane(name, lane, stats):
+        now = collections.Counter(ops.kernel_launches())
+        info = dict(steps=stats["steps"], tokens_decoded=stats["tokens_decoded"],
+                    elapsed_s=stats["elapsed_s"], launches=dict(now - last[0]))
+        last[0] = now
+        graphs = lane.decode_graphs if name == "per-request-baseline" else lane.last_decoder.graphs
+        info.update(graph_captures=graphs.captures, graph_replays=graphs.replays)
+        if name in reruns:
+            dma_s = (lane.scheduler.stats["loaded_bytes"] / 1e9 / PCIE_GBPS
+                     if name == "per-request-baseline" else lane.dma.stall_s)
+            serve, range_name = reruns[name]
+            busy_ms, again = profile_lane(torch, lambda: serve(lane), range_name)
+            want = len(window) * DSB.MAX_NEW if name == "per-request-baseline" else stats["steps"]
+            assert again["steps"] == want, (again, stats)
+            step_ms = busy_ms / again["steps"]
+            wall_ms = stats["elapsed_s"] * 1e3
+            info.update(wall_ms_per_step=wall_ms / stats["steps"], modelled_dma_s=dma_s,
+                        profiled_steps=again["steps"], device_busy_ms_profiled=busy_ms,
+                        device_ms_per_step=step_ms,
+                        wall_ms_per_step_profiled=again["elapsed_s"] * 1e3 / again["steps"],
+                        device_idle_share_profiled=1 - busy_ms / (again["elapsed_s"] * 1e3),
+                        device_idle_share=1 - step_ms * stats["steps"] / wall_ms,
+                        device_idle_share_without_dma=1 - step_ms * stats["steps"] / (
+                            wall_ms - dma_s * 1e3))
+        lanes[name] = info
+
+    t0 = time.perf_counter()
+    rows, derived = DSB.run_lanes(scn, DSB.REQS_PER_MODEL, DSB.MAX_NEW, plan=plan,
+                                  on_lane=on_lane)
+    torch.cuda.synchronize()
+    lanes_s = time.perf_counter() - t0
+    launches, routes = ops.kernel_launches(), ops.route_launches()
+    tensor_core_routes_only(routes)
+    assert all(launches[k] > 0 for k in ("page_gather", "decode_attention", "bank_matmul")), \
+        launches
+    base, merged = lanes["per-request-baseline"], lanes["merged-paged-continuous"]
+    gates = DSB.gates(derived, smoke=True)  # the structural ones; the timed one is printed
+    gates["per-request lane graph replays > 0"] = base["graph_replays"] > 0
+    gates["merged lane graph replays > 0"] = merged["graph_replays"] > 0
+    tokens = base["tokens_decoded"]
+    emit("stablelm_decode_serve", config=scn.cfg.name, members=list(scn.mids), rows=rows,
+         derived=derived, gates=gates,
+         decode_speedup=derived["decode_speedup"], reference_gate=">= 2.0", asserted=False,
+         decode_speedup_without_modelled_dma=(
+             tokens / (merged["elapsed_s"] - merged["modelled_dma_s"]))
+         / (tokens / (base["elapsed_s"] - base["modelled_dma_s"])),
+         lanes=lanes, lanes_s=lanes_s, launches=launches, route_launches=routes,
+         seconds=time.perf_counter() - t_phase)
+    assert all(gates.values()), {k: v for k, v in gates.items() if not v}
+    return launches, routes
 
 
 # ---------------------------------------------------------------------------
@@ -1954,11 +2188,16 @@ def main() -> int:
                  reference_gate=">= 2.0", asserted=False)
         del eng, store  # the next family's start_phase frees this one's store
     add(*stablelm_plan_phase(torch, stablelm_1_6b.full_config(), int(16e9)))
+    *run, lm_scn, lm_plan = stablelm_lm_serve_phase(torch, stablelm_1_6b.full_config())
+    add(*run)
+    add(*stablelm_decode_serve_phase(torch, lm_scn, lm_plan))
+    del lm_scn, lm_plan, run
     *run, drift_loop = stablelm_drift_phase(torch, stablelm_1_6b.full_config())
     add(*run)
     add(*stablelm_swap_failure_phase(torch, drift_loop))
     del drift_loop, run
     add(*small_cnn_lifecycle_phases(torch))
+    add(*host_bench_phases(torch))
     t0 = start_phase(torch, "small_cnn_retrain")
     small_cnn_retrain_phase(torch)
     emit("phase_end", name="small_cnn_retrain", seconds=time.perf_counter() - t0)

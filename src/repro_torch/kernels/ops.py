@@ -186,6 +186,31 @@ def route_launches() -> dict:
             if hasattr(spec.kernel, "route_launches")}
 
 
+def launch_counters() -> dict:
+    """Every launch counter as one flat {key: count}: ``(op,)`` for a
+    kernel's launches, ``(op, route)`` for its launches by route.  A
+    CUDA-graph replay launches no wrapper, so ``serving.graphs`` takes the
+    difference of two of these around a capture and adds it back on every
+    replay (:func:`add_launch_counters`)."""
+    out = {}
+    for name, spec in OP_TABLE.items():
+        out[(name,)] = spec.kernel.launches
+        for route, n in getattr(spec.kernel, "route_launches", {}).items():
+            out[(name, route)] = n
+    return out
+
+
+def add_launch_counters(delta: dict, times: int = 1) -> None:
+    """Add ``times`` x ``delta`` (keys of :func:`launch_counters`) to the
+    kernels' counters."""
+    for key, n in delta.items():
+        kernel = OP_TABLE[key[0]].kernel
+        if len(key) == 1:
+            kernel.launches += times * n
+        else:
+            kernel.route_launches[key[1]] += times * n
+
+
 def reset_kernel_launches() -> None:
     for spec in OP_TABLE.values():
         spec.kernel.launches = 0

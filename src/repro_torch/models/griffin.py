@@ -278,9 +278,12 @@ def _layer(cfg: GriffinConfig, kind: str, p: dict, x: torch.Tensor,
 
 
 def _embed(cfg: GriffinConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    """The embedding scaled by sqrt(d_model), as gemma does."""
+    """The embedding scaled by sqrt(d_model), as gemma does.  The scale is
+    rounded to the embedding's dtype on the host and enters as a CPU
+    scalar, so the step copies nothing to the device (a CUDA-graph capture
+    of it would refuse the copy)."""
     x = L.embed(tokens, params["embed"]["table"])
-    return x * torch.sqrt(torch.tensor(float(cfg.d_model), dtype=x.dtype, device=x.device))
+    return x * torch.sqrt(torch.tensor(float(cfg.d_model), dtype=x.dtype))
 
 
 def trunk(cfg: GriffinConfig, params: dict, tokens: torch.Tensor,
@@ -380,7 +383,7 @@ def init_cache(cfg: GriffinConfig, batch: int, max_len: int, dtype=None,
     """Per pattern position ``"{i}_{kind}"``, over the repeats: a recurrent
     layer's h (R, B, dr) float32 and conv history (R, B, K-1, dr), an
     attention layer's ring k/v (R, B, W, Hs, D) with W = min(window,
-    max_len); and ``length`` (a Python int)."""
+    max_len); and ``length``, a 0-d int32 tensor on the cache's device."""
     device = resolve_device(device)
     dt = torch_dtype(dtype or cfg.dtype)
     R, W, Hs = cfg.n_repeats, min(cfg.window, max_len), cfg.kv_stored_heads
@@ -395,15 +398,15 @@ def init_cache(cfg: GriffinConfig, batch: int, max_len: int, dtype=None,
             cache[f"{i}_{kind}"] = {
                 kv: torch.zeros((R, batch, W, Hs, cfg.head_dim), dtype=dt, device=device)
                 for kv in ("k", "v")}
-    cache["length"] = 0
+    cache["length"] = torch.zeros((), dtype=torch.int32, device=device)
     return cache
 
 
 def decode_step(cfg: GriffinConfig, params: dict, cache: dict,
                 tokens: torch.Tensor) -> tuple:
     """tokens (B, S_new) -> (logits (B, S_new, V) float32, cache with the new
-    state written in place and ``length`` advanced).  Works for a prompt
-    too: the scan carries the state over every new token."""
+    state written and ``length`` advanced, all in place).  Works for a
+    prompt too: the scan carries the state over every new token."""
     B, Sn = tokens.shape
     length = cache["length"]
     positions = (length + torch.arange(Sn, dtype=torch.int32,
@@ -418,7 +421,8 @@ def decode_step(cfg: GriffinConfig, params: dict, cache: dict,
                                    positions)
             if kind == "rec":  # the ring was written in place
                 st["h"][r], st["conv"][r] = new["h"], new["conv"]
-    return head(cfg, params, x), {**cache, "length": length + Sn}
+    length.add_(Sn)
+    return head(cfg, params, x), cache
 
 
 def prefill(cfg: GriffinConfig, params: dict, tokens: torch.Tensor, max_len: int) -> tuple:

@@ -265,29 +265,31 @@ def bank_head(cfg: DenseLMConfig, bank_params: dict, x: torch.Tensor) -> torch.T
 def init_cache(cfg: DenseLMConfig, batch: int, max_len: int, dtype=None,
                device=None) -> dict:
     """Contiguous KV cache over layers: k/v (L, B, Smax, Hkv*kv_repl, D) of
-    zeros, and ``length``, the tokens already cached (a Python int)."""
+    zeros, and ``length``, the tokens already cached: a 0-d int32 tensor on
+    the cache's device (the JAX package traces it as a device value), so a
+    captured decode step reads and advances it on the device."""
     device = resolve_device(device)
     dt = torch_dtype(dtype or cfg.dtype)
     shape = (cfg.n_layers, batch, max_len, cfg.kv_stored_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device),
-            "length": 0}
+            "length": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def _write_kv(cache_k, cache_v, k, v, start: int, kv_repl: int):
-    """Write new k/v (B, S, Hkv, D) into one layer's cache at ``start``, in
-    place."""
+def _write_kv(cache_k, cache_v, k, v, positions: torch.Tensor, kv_repl: int):
+    """Write new k/v (B, S, Hkv, D) into one layer's cache at ``positions``
+    (S,), in place."""
     if kv_repl > 1:
         k = k.repeat_interleave(kv_repl, dim=2)
         v = v.repeat_interleave(kv_repl, dim=2)
-    S = k.shape[1]
-    cache_k[:, start:start + S] = k.to(cache_k.dtype)
-    cache_v[:, start:start + S] = v.to(cache_v.dtype)
+    idx = positions.long()
+    cache_k.index_copy_(1, idx, k.to(cache_k.dtype))
+    cache_v.index_copy_(1, idx, v.to(cache_v.dtype))
     return cache_k, cache_v
 
 
 def _block_decode(cfg: DenseLMConfig, p: dict, cache_l: dict, x: torch.Tensor,
-                  positions: torch.Tensor, length: int):
+                  positions: torch.Tensor, length: torch.Tensor):
     """Single-step (or chunked) decode block against one cache layer.
     x (B, S_new, d); cache k/v (B, Smax, Hs, D).  One token without a window
     goes through ``ops.decode_attention``; more tokens through the plain
@@ -295,9 +297,9 @@ def _block_decode(cfg: DenseLMConfig, p: dict, cache_l: dict, x: torch.Tensor,
     B, Sn, _ = x.shape
     h = L.apply_norm(cfg.norm, x, p.get("ln1", {}))
     q, k, v = _qkv(cfg, p["attn"], h, positions)
-    ck, cv = _write_kv(cache_l["k"], cache_l["v"], k, v, length, cfg.kv_repl)
+    ck, cv = _write_kv(cache_l["k"], cache_l["v"], k, v, positions[0], cfg.kv_repl)
     if Sn == 1 and cfg.window is None:
-        lengths = torch.full((B,), length + 1, dtype=torch.int32, device=x.device)
+        lengths = (length + 1).to(torch.int32).repeat(B)
         attn = kops.decode_attention(q[:, 0].contiguous(), ck, cv, lengths)[:, None]
     else:
         Smax = ck.shape[1]
@@ -316,8 +318,8 @@ def _block_decode(cfg: DenseLMConfig, p: dict, cache_l: dict, x: torch.Tensor,
 def decode_step(cfg: DenseLMConfig, params: dict, cache: dict,
                 tokens: torch.Tensor) -> tuple:
     """One decode step, tokens (B, S_new) (S_new = 1 for autoregressive
-    decode).  Writes the new k/v into ``cache`` in place; returns (logits
-    (B, S_new, V) float32, cache with ``length`` advanced)."""
+    decode).  Writes the new k/v into ``cache`` and advances its ``length``,
+    all in place; returns (logits (B, S_new, V) float32, cache)."""
     B, Sn = tokens.shape
     length = cache["length"]
     positions = (length + torch.arange(Sn, dtype=torch.int32,
@@ -327,7 +329,8 @@ def decode_step(cfg: DenseLMConfig, params: dict, cache: dict,
     for i in range(cfg.n_layers):
         x, _ = _block_decode(cfg, params["blocks"][str(i)], {"k": ck[i], "v": cv[i]},
                              x, positions, length)
-    return head(cfg, params, x), {"k": ck, "v": cv, "length": length + Sn}
+    length.add_(Sn)
+    return head(cfg, params, x), {"k": ck, "v": cv, "length": length}
 
 
 # ---------------------------------------------------------------------------

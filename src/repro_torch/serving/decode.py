@@ -24,8 +24,13 @@ dispatch).  The KV side mirrors the weight side's page discipline:
 This port is single-device: the bank fan-out calls ``bank_head`` directly
 (the JAX package routes it through the engine's mesh-sharding wrapper) and
 admission does not do per-shard DMA accounting; both belong to the
-placement tier, which comes later.  PyTorch runs eagerly, so the pool is
-written in place and there is nothing to compile per shape.
+placement tier, which comes later.  Where the JAX package jits each step
+kind once (``_fn``), the decoder on a CUDA device replays a CUDA graph per
+(kind, callable, chunk, group, bucket, store epoch) (``serving.graphs``):
+the group step (trunk + bank or heads), the singleton step and each
+prefill chunk.  The pools are written in place and never reallocated, so a
+graph binds them for its life; an epoch move drops every graph.  On the
+CPU the same step bodies run eagerly.
 
 Paged == unpaged contract: the paged path gathers pages into exactly the
 contiguous ``init_cache`` layout (Smax = max_len) and both paths route
@@ -40,6 +45,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import types
 from collections import deque
 from typing import Any, Callable, Optional
 
@@ -47,6 +53,7 @@ import numpy as np
 import torch
 
 from repro_torch.serving.executor import MergeAwareEngine
+from repro_torch.serving.graphs import StepGraphs, check_in_place, uncounted
 from repro_torch.serving.workload import bucket_for
 from repro_torch.utils.tree import flatten_paths
 
@@ -241,6 +248,12 @@ class StreamingDecoder:
     Tokens are the argmax over the full padded vocab, taken on the device
     (the first maximal index, as ``np.argmax``); only the token ids, and
     with ``record_logits`` the emitted rows, cross to the host.
+
+    On a CUDA device every dispatch above is a replay of a captured graph
+    (``graphs``: its ``captures`` and ``replays``); the warm-up captures the
+    shapes it can foresee, and a shape first met in the run (a new group
+    after an epoch move, a new set of members for per-member heads) is run
+    once eagerly on a scratch pool, then captured.
     """
 
     def __init__(self, engine: MergeAwareEngine, page_size: int = 8,
@@ -271,6 +284,8 @@ class StreamingDecoder:
         self._rid = 0
         self._t0 = self.clock()
         self._epoch = self.store.epoch
+        device = next(iter(self.store.buffers.values())).device
+        self.graphs = StepGraphs(device) if device.type == "cuda" else None
         # trunk passes: one per trunk or singleton step dispatch and one per
         # token of a prefill-chunk dispatch -- each runs every trunk layer
         # once on one token per row -- in the warm-up and in the run
@@ -360,6 +375,8 @@ class StreamingDecoder:
             # KV prefix and decode subsequent tokens under the new bindings
             for pool in self._pools.values():
                 pool.bump_epoch()
+            if self.graphs is not None:
+                self.graphs.clear()  # they bind the old epoch's params and banks
             self._epoch = self.store.epoch
             self.stats["epoch_bumps"] += 1
             self.stats["swap_survivors"] += len(self.slots)
@@ -398,8 +415,6 @@ class StreamingDecoder:
         if dec.prefill_chunk is None:
             return
         pool = self.pool_for(group[0])
-        params = self._params(group[0])
-        device = pool.device
         by_k: dict = {}
         for s in slots:
             k = min(self.page_size, len(s.prompt) - 1 - s.pos)
@@ -412,12 +427,9 @@ class StreamingDecoder:
                 bucket, pool.table_rows([s.rid for s in ss], self.max_pages),
                 np.array([s.prompt[s.pos:s.pos + k] for s in ss], np.int32),
                 np.array([s.length for s in ss], np.int32))
-            kv = {"k": pool.k, "v": pool.v}
-            _, kv = dec.prefill_chunk(
-                params, kv, torch.as_tensor(tables, device=device),
-                torch.as_tensor(lengths, device=device),
-                torch.as_tensor(tokens, device=device))
-            pool.k, pool.v = kv["k"], kv["v"]
+            # a batch past the largest bucket runs unpadded, at its own size
+            self._launch(*self._prefill_call(group, k, len(tables)), (tables, lengths, tokens),
+                         group)
             self.stats["prefill_chunk_dispatches"] += 1
             self.trunk_passes["run"] += k
             for s in ss:
@@ -428,10 +440,7 @@ class StreamingDecoder:
                 self.stats["prompt_tokens"] += k
 
     def _run_group_step(self, group: list, slots: list) -> None:
-        lead = group[0]
-        dec = self._decode(lead)
-        pool = self.pool_for(lead)
-        device = pool.device
+        pool = self.pool_for(group[0])
         bucket = bucket_for(len(slots), self.buckets)
 
         for s in slots:
@@ -440,35 +449,22 @@ class StreamingDecoder:
             bucket, pool.table_rows([s.rid for s in slots], self.max_pages),
             np.array([s.next_input for s in slots], np.int32),
             np.array([s.length for s in slots], np.int32))
-        kv = {"k": pool.k, "v": pool.v}
-        args = (torch.as_tensor(tables, device=device),
-                torch.as_tensor(lengths, device=device),
-                torch.as_tensor(tokens, device=device))
 
         members = sorted({s.request.instance_id for s in slots})
+        call = self._group_call(group, members, len(tables))
+        rows = self._launch(*call, (tables, lengths, tokens), group)  # (N, rows, V)
         if len(group) > 1:
             self.stats["group_steps"] += 1
-            hidden, kv = dec.trunk_step(self._params(lead), kv, *args)
             self.stats["trunk_dispatches"] += 1
-            if self.engine._group_bankable(tuple(group)) and dec.bank_head is not None:
-                out = dec.bank_head(self.engine._bank_params(group), hidden)
+            if self._banked(group):
                 self.stats["bank_dispatches"] += 1
-                rows = out[:, :, 0]  # (N, bucket, V)
                 row_of = {iid: n for n, iid in enumerate(group)}
             else:
-                outs = []
-                for iid in members:
-                    outs.append(dec.head(self._params(iid), hidden)[:, 0])
-                    self.stats["head_dispatches"] += 1
-                rows = torch.stack(outs)
+                self.stats["head_dispatches"] += len(members)
                 row_of = {iid: n for n, iid in enumerate(members)}
         else:
-            (iid,) = group
-            out, kv = dec.step(self._params(iid), kv, *args)
             self.stats["singleton_dispatches"] += 1
-            rows = out[:, 0][None]
-            row_of = {iid: 0}
-        pool.k, pool.v = kv["k"], kv["v"]
+            row_of = {group[0]: 0}
         self.trunk_passes["run"] += 1
 
         emitting = []
@@ -496,56 +492,146 @@ class StreamingDecoder:
     def _params(self, iid: str):
         return self.engine._params(iid)
 
+    def _banked(self, group: list) -> bool:
+        """A shared group whose heads fan out in one bank dispatch."""
+        return (len(group) > 1 and self.engine._group_bankable(tuple(group))
+                and self._decode(group[0]).bank_head is not None)
+
+    # -- the step bodies: run eagerly on the CPU, captured on a CUDA device --
+
+    def _group_call(self, group: list, members: list, bucket: int) -> tuple:
+        """(key, body, fixed arguments) of one group step of ``bucket``
+        rows: the trunk step and the bank (key ``(..., "bank", ...)``) or
+        each present member's head, or a singleton's full step.  The body
+        returns the logits rows (N, bucket, V): the bank's members in group
+        order, the heads' in ``members`` order, a singleton's one row."""
+        dec = self._decode(group[0])
+        fkey = MergeAwareEngine._callable_key
+        if len(group) == 1:
+            def body(params, pool, tables, lengths, tokens):
+                kv = {"k": pool.k, "v": pool.v}
+                out, new = dec.step(params, kv, tables, lengths, tokens)
+                check_in_place(kv, new, "step")
+                return out[:, 0][None]
+
+            return (("step", fkey(dec.step), tuple(group), bucket), body,
+                    (self._params(group[0]), self.pool_for(group[0])))
+
+        def trunk(params, pool, tables, lengths, tokens):
+            kv = {"k": pool.k, "v": pool.v}
+            hidden, new = dec.trunk_step(params, kv, tables, lengths, tokens)
+            check_in_place(kv, new, "trunk_step")
+            return hidden
+
+        params = self._params(group[0])
+        if self._banked(group):
+            def body(params, bank, pool, tables, lengths, tokens):
+                return dec.bank_head(bank, trunk(params, pool, tables, lengths, tokens))[:, :, 0]
+
+            return (("trunk", "bank", fkey(dec.trunk_step), tuple(group), bucket), body,
+                    (params, self.engine._bank_params(group), self.pool_for(group[0])))
+
+        def body(params, heads, pool, tables, lengths, tokens):
+            hidden = trunk(params, pool, tables, lengths, tokens)
+            return torch.stack([dec.head(p, hidden)[:, 0] for p in heads])
+
+        return (("trunk", "heads", fkey(dec.trunk_step), tuple(group), tuple(members), bucket),
+                body, (params, tuple(self._params(i) for i in members), self.pool_for(group[0])))
+
+    def _prefill_call(self, group: list, k: int, bucket: int) -> tuple:
+        """(key, body, fixed arguments) of one prefill chunk of ``k`` tokens."""
+        dec = self._decode(group[0])
+
+        def body(params, pool, tables, lengths, tokens):
+            kv = {"k": pool.k, "v": pool.v}
+            hidden, new = dec.prefill_chunk(params, kv, tables, lengths, tokens)
+            check_in_place(kv, new, "prefill_chunk")
+            return hidden
+
+        return (("prefill", MergeAwareEngine._callable_key(dec.prefill_chunk), k, tuple(group),
+                 bucket), body, (self._params(group[0]), self.pool_for(group[0])))
+
+    def _launch(self, key: tuple, body, fixed: tuple, host: tuple, group: list):
+        """``body(*fixed, *host arrays on the device)``: eagerly on the CPU;
+        on a CUDA device the replay of its graph under ``key`` and the
+        store epoch, captured first, after one eager run on a scratch pool,
+        if this decoder has not met it yet."""
+        pool = fixed[-1]
+        if self.graphs is None:
+            return body(*fixed, *(torch.as_tensor(a, device=pool.device) for a in host))
+        key = (*key, self.store.epoch)
+        if key not in self.graphs:
+            shapes = [np.shape(a) for a in host]
+            self._eager_once(body, fixed, shapes, group)
+            self.graphs.capture(key, body, fixed, shapes)
+        return self.graphs.replay(key, fixed, host)
+
+    def _scratch_pool(self, group: list, device) -> types.SimpleNamespace:
+        """A pool of ``max_pages`` pages for ``group`` that no request owns:
+        the eager runs write their zero-token k/v there, never in the live
+        pool."""
+        kv = self._decode(group[0]).init_pool(self.max_pages, self.page_size, device=device)
+        return types.SimpleNamespace(k=kv["k"], v=kv["v"], device=device)
+
+    def _eager_once(self, body, fixed: tuple, shapes: list, group: list) -> None:
+        """Run a step body once eagerly on zero inputs of ``shapes`` against
+        a scratch pool and wait for it: the one eager launch a shape needs
+        before its capture.  Like the capture it readies, it is left out of
+        the launch counts and trunk passes, so a graphed run counts what the
+        same steps run eagerly count."""
+        device = fixed[-1].device
+        zeros = [torch.zeros(s, dtype=torch.int32, device=device) for s in shapes]
+        with uncounted():
+            body(*fixed[:-1], self._scratch_pool(group, device), *zeros)
+            torch.cuda.synchronize(device)
+
     # -- warmup + run ---------------------------------------------------------
 
     def _warmup(self) -> None:
         """Run every (group, bucket) decode path once before the clock
-        starts: it builds the CUDA kernels and warms the GEMM libraries and
-        the caching allocator.  The steps write their zero-token k/v, so they
-        run against a scratch pool of ``max_pages`` pages, never the live
-        one."""
+        starts — the :meth:`_group_call` body over all of a group's members
+        and the :meth:`_prefill_call` body of each chunk size the queued
+        prompts need — against a scratch pool: it builds the CUDA kernels
+        and warms the GEMM libraries and the caching allocator.  On a CUDA
+        device each body is then captured on the live pool, except a
+        per-member heads step: which members it holds is known only when it
+        is met."""
         for group in self.engine.prefix_groups():
             try:
-                dec = self._decode(group[0])
+                self._decode(group[0])
             except ValueError:
                 continue
             device = self._device(group[0])
-            kv = dec.init_pool(self.max_pages, self.page_size, device=device)
-            for b in self.buckets:
-                args = (torch.zeros((b, self.max_pages), dtype=torch.int32, device=device),
-                        torch.zeros((b,), dtype=torch.int32, device=device),
-                        torch.zeros((b,), dtype=torch.int32, device=device))
-                if len(group) > 1:
-                    hidden, _ = dec.trunk_step(self._params(group[0]), kv, *args)
-                    if self.engine._group_bankable(tuple(group)) and dec.bank_head is not None:
-                        out = dec.bank_head(self.engine._bank_params(group), hidden)
-                    for iid in group:
-                        out = dec.head(self._params(iid), hidden)
-                else:
-                    out, _ = dec.step(self._params(group[0]), kv, *args)
-                self.trunk_passes["warmup"] += 1
-                out.sum().item()  # wait for the device
-            if self.chunked_prefill and dec.prefill_chunk is not None:
-                # exactly the chunk sizes the queued prompts will need (pos
-                # advances k + 1 per step: chunk then normal step)
-                ks: set = set()
-                for req in self.queue:
-                    if req.instance_id not in group:
-                        continue
-                    pos, S = 0, len(req.prompt)
-                    while S - 1 - pos >= 2:
-                        k = min(self.page_size, S - 1 - pos)
-                        ks.add(k)
-                        pos += k + 1
-                for k in sorted(ks):
-                    for b in self.buckets:
-                        hidden, _ = dec.prefill_chunk(
-                            self._params(group[0]), kv,
-                            torch.zeros((b, self.max_pages), dtype=torch.int32, device=device),
-                            torch.zeros((b,), dtype=torch.int32, device=device),
-                            torch.zeros((b, k), dtype=torch.int32, device=device))
-                        self.trunk_passes["warmup"] += k
-                        hidden.sum().item()
+            scratch = self._scratch_pool(group, device)
+            shapes = lambda b, k: ((b, self.max_pages), (b,), (b, k) if k else (b,))  # noqa: E731
+            calls = [(self._group_call(group, list(group), b), shapes(b, 0), 1)
+                     for b in self.buckets]
+            calls += [(self._prefill_call(group, k, b), shapes(b, k), k)
+                      for k in self._chunk_sizes(group) for b in self.buckets]
+            for (_, body, fixed), shp, passes in calls:
+                zeros = [torch.zeros(s, dtype=torch.int32, device=device) for s in shp]
+                body(*fixed[:-1], scratch, *zeros).sum().item()  # .item() waits for the device
+                self.trunk_passes["warmup"] += passes
+            if self.graphs is not None and (len(group) == 1 or self._banked(group)):
+                for (key, body, fixed), shp, _ in calls:
+                    self.graphs.capture((*key, self.store.epoch), body, fixed, shp)
+
+    def _chunk_sizes(self, group: list) -> list:
+        """Exactly the prefill chunk sizes the queued prompts of ``group``
+        will need (pos advances k + 1 per step: chunk then normal step)."""
+        dec = self._decode(group[0])
+        if not self.chunked_prefill or dec.prefill_chunk is None:
+            return []
+        ks: set = set()
+        for req in self.queue:
+            if req.instance_id not in group:
+                continue
+            pos, S = 0, len(req.prompt)
+            while S - 1 - pos >= 2:
+                k = min(self.page_size, S - 1 - pos)
+                ks.add(k)
+                pos += k + 1
+        return sorted(ks)
 
     def run(self, requests: list, horizon_s: float = 60.0,
             on_step: Optional[Callable] = None, warmup: bool = True) -> dict:
@@ -557,13 +643,14 @@ class StreamingDecoder:
         if warmup:
             self._warmup()
         self._t0 = self.clock()
-        while (self.queue or self.slots) and self.clock() - self._t0 < horizon_s:
-            self._admit()
-            if not self.slots:  # queue non-empty but nothing admittable
-                break
-            self.step()
-            if on_step is not None:
-                on_step(self, self.stats["steps"])
+        with torch.profiler.record_function("StreamingDecoder.run.steps"):
+            while (self.queue or self.slots) and self.clock() - self._t0 < horizon_s:
+                self._admit()
+                if not self.slots:  # queue non-empty but nothing admittable
+                    break
+                self.step()
+                if on_step is not None:
+                    on_step(self, self.stats["steps"])
         elapsed = self.clock() - self._t0
         pools_ok = all(p.identity_ok() for p in self._pools.values())
         return {

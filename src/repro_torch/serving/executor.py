@@ -9,10 +9,12 @@
   MergePlan swap and the drift ``revert``.  The sharded bank waits for a
   later slice.
 
-PyTorch runs eagerly, so there is nothing to compile: where the JAX
-executors block on ``jax.block_until_ready`` these synchronise the device
-that holds the result.  The statistics the two packages share keep their
-meaning.
+PyTorch runs eagerly: where the JAX executors block on
+``jax.block_until_ready`` these synchronise the device that holds the
+result.  The per-request decode lane replays CUDA graphs on a card
+(``serving.graphs``), where the JAX package jits its step; the serve
+paths' forwards still run eagerly.  The statistics the two packages share
+keep their meaning.
 
 The DMA delay is modelled (``AsyncDMA``), while residency, eviction and
 merging-aware incremental loads are real key-set operations.
@@ -24,10 +26,12 @@ import time
 from collections import deque
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.store import ParamStore
 from repro_torch.serving.costs import PCIE_GBPS
+from repro_torch.serving.graphs import StepGraphs, check_in_place
 from repro_torch.serving.scheduler import Instance, Scheduler
 from repro_torch.serving.workload import bucket_for, deadline_microbatches, pad_stack
 from repro_torch.utils.tree import flatten_paths, leaf_bytes
@@ -113,6 +117,7 @@ class EdgeExecutor:
         self.skipped: int = 0
         self.dropped_expired: int = 0
         self.decode_completions: list = []
+        self.decode_graphs = None  # serve_decode's captured steps on a CUDA device
 
     def submit(self, req: Request):
         self.queues[req.instance_id].append(req)
@@ -186,14 +191,23 @@ class EdgeExecutor:
         }
 
     def serve_decode(self, requests: list, programs: list, max_len: int = 64,
-                     horizon_s: float = 60.0, warmup: bool = True) -> dict:
+                     horizon_s: float = 60.0) -> dict:
         """Per-request decode baseline lane: one request at a time in EDF
-        order, each on its own contiguous cache (``DecodeSplit.init_cache``)
-        — ONE chunked step over the whole prompt, then one single-token step
-        per further generated token.  Greedy argmax over the full padded
-        vocab (the first maximal index, as ``np.argmax``), as the streaming
-        decoder takes it.  Stats mirror the decoder's ``tokens_decoded`` /
-        ``steps`` / ``prompt_tokens``."""
+        order, each on its decode split's contiguous cache
+        (``DecodeSplit.init_cache``), one per split, zeroed for each request
+        and written in place — ONE chunked step over the whole prompt, then
+        one single-token step per further generated token.  Greedy argmax
+        over the full padded vocab (the first maximal index, as
+        ``np.argmax``), as the streaming decoder takes it.  Stats mirror the
+        decoder's ``tokens_decoded`` / ``steps`` / ``prompt_tokens``.
+
+        Before the clock starts, the warm-up runs both shapes (prompt chunk
+        and single token) of every model of the trace once eagerly, on a
+        scratch cache.  On a CUDA device it then captures them on the lane's
+        cache, and each ``step_unpaged`` is the replay of a CUDA graph per
+        (model, step length, store epoch) (``decode_graphs``), as the JAX
+        package jits it.  The timed loop runs inside the profiler range
+        ``EdgeExecutor.serve_decode.lane``."""
         from repro_torch.serving.decode import DecodeCompletion
 
         progs = {p.instance_id: p for p in programs}
@@ -201,51 +215,77 @@ class EdgeExecutor:
             if progs[req.instance_id].decode is None:
                 raise ValueError(f"{req.instance_id}: program has no decode "
                                  "surface (adapter lacks can_decode)")
+        device = next(iter(self.store.buffers.values())).device
+        graphs = StepGraphs(device) if device.type == "cuda" else None
+        self.decode_graphs = graphs
+        caches: dict = {}  # init_cache callable key -> the lane's cache
 
-        def device_of(params) -> torch.device:
-            return next(iter(flatten_paths(params).values())).device
-
-        def tokens(values, device) -> torch.Tensor:
+        def tokens(values) -> torch.Tensor:
             return torch.as_tensor(values, dtype=torch.int32, device=device)[None, :]
 
+        def graph_key(req, n: int) -> tuple:
+            dec = progs[req.instance_id].decode
+            return ("step_unpaged", MergeAwareEngine._callable_key(dec.step_unpaged),
+                    base_model_id(req.instance_id), n, self.store.epoch)
+
+        def lane_cache(dec) -> dict:
+            key = MergeAwareEngine._callable_key(dec.init_cache)
+            if key not in caches:
+                caches[key] = dec.init_cache(1, max_len, device=device)
+            return caches[key]
+
+        def body(dec):
+            def run(params, cache, toks):
+                logits, new = dec.step_unpaged(params, cache, toks)
+                check_in_place(cache, new, "step_unpaged")
+                return logits
+            return run
+
+        def step(req, params, cache, toks: list) -> torch.Tensor:
+            """One ``step_unpaged`` of ``toks``; the logits (1, S, V)."""
+            if graphs is None:
+                return body(progs[req.instance_id].decode)(params, cache, tokens(toks))
+            return graphs.replay(graph_key(req, len(toks)), (params, cache),
+                                 (np.asarray(toks, np.int32)[None, :],))
+
         order = sorted(requests, key=lambda r: (r.deadline_s, r.arrival_s))
-        if warmup:  # run both shapes once (prompt chunk + single token)
-            seen = set()
-            for req in order:
-                dec = progs[req.instance_id].decode
-                key = (id(dec), len(req.prompt))
-                if key in seen:
-                    continue
-                seen.add(key)
-                params = self.store.materialize_cached(base_model_id(req.instance_id))
-                device = device_of(params)
+        seen = set()
+        for req in order:  # the warm-up: both shapes of every model
+            dec = progs[req.instance_id].decode
+            params = self.store.materialize_cached(base_model_id(req.instance_id))
+            if (id(dec), len(req.prompt)) not in seen:
+                seen.add((id(dec), len(req.prompt)))
                 cache = dec.init_cache(1, max_len, device=device)
-                _, cache = dec.step_unpaged(params, cache, tokens([0] * len(req.prompt), device))
-                lg, _ = dec.step_unpaged(params, cache, tokens([0], device))
-                block_until_ready(lg)
+                _, cache = dec.step_unpaged(params, cache, tokens([0] * len(req.prompt)))
+                block_until_ready(dec.step_unpaged(params, cache, tokens([0]))[0])
+            if graphs is not None:  # a no-op for the shapes captured already
+                for n in (len(req.prompt), 1):
+                    graphs.capture(graph_key(req, n), body(dec), (params, lane_cache(dec)),
+                                   ((1, n),))
 
         stats = {"steps": 0, "tokens_decoded": 0, "prompt_tokens": 0}
         completions: list = []
         t0 = self.clock()
-        for req in order:
-            if self.clock() - t0 > horizon_s:
-                break
-            dec = progs[req.instance_id].decode
-            params = self._load(req.instance_id, 1)
-            device = device_of(params)
-            cache = dec.init_cache(1, max_len, device=device)
-            logits, cache = dec.step_unpaged(params, cache,
-                                             tokens([int(t) for t in req.prompt], device))
-            stats["steps"] += 1
-            stats["prompt_tokens"] += len(req.prompt)
-            out = [int(logits[0, -1].argmax())]
-            stats["tokens_decoded"] += 1
-            for _ in range(req.max_new_tokens - 1):
-                logits, cache = dec.step_unpaged(params, cache, tokens([out[-1]], device))
+        with torch.profiler.record_function("EdgeExecutor.serve_decode.lane"):
+            for req in order:
+                if self.clock() - t0 > horizon_s:
+                    break
+                params = self._load(req.instance_id, 1)
+                cache = lane_cache(progs[req.instance_id].decode)
+                for t in flatten_paths(cache).values():
+                    if isinstance(t, torch.Tensor):
+                        t.zero_()
+                logits = step(req, params, cache, [int(t) for t in req.prompt])
                 stats["steps"] += 1
-                out.append(int(logits[0, 0].argmax()))
+                stats["prompt_tokens"] += len(req.prompt)
+                out = [int(logits[0, -1].argmax())]
                 stats["tokens_decoded"] += 1
-            completions.append(DecodeCompletion(req, out, self.clock() - t0))
+                for _ in range(req.max_new_tokens - 1):
+                    logits = step(req, params, cache, [out[-1]])
+                    stats["steps"] += 1
+                    out.append(int(logits[0, 0].argmax()))
+                    stats["tokens_decoded"] += 1
+                completions.append(DecodeCompletion(req, out, self.clock() - t0))
         self.decode_completions = completions
         elapsed = self.clock() - t0
         return {

@@ -1106,3 +1106,227 @@ def test_engine_revert_serves_the_new_original_within_the_bf16_allowance(cuda_de
     card_gap, host_gap = gap(card), gap(host)
     print(f"reverted bf16 serve, max and RMS gap to float32: card {card_gap}, cpu {host_gap}")
     assert card_gap[0] <= 2 * host_gap[0] and card_gap[1] <= 2 * host_gap[1], (card_gap, host_gap)
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs of the decode steps (serving.graphs): a graphed run against the
+# same steps run eagerly (the modules' StepGraphs replaced by None, which is
+# what they use on the CPU)
+# ---------------------------------------------------------------------------
+
+
+def _graph_cfg():
+    from repro_torch.models.transformer import DenseLMConfig
+
+    return DenseLMConfig(name="gpu-lm", n_layers=2, d_model=128, n_heads=4, n_kv_heads=2,
+                         head_dim=64, d_ff=256, vocab_size=300, rotary_pct=0.25,
+                         norm="layernorm", dtype="bfloat16")
+
+
+def _stream(device, monkeypatch, eager: bool, swap_at=None):
+    """A merged pair (A, B) and a singleton C, or all three unmerged with
+    the plan merging A and B applied (``apply_plan``) after step
+    ``swap_at``, streamed with chunked prefill and recorded logits; with
+    ``eager`` the decoder runs its step bodies without graphs.  Returns
+    (stats, completions, launches, routes, decoder)."""
+    from repro_torch.core import MergePlan, ParamStore, enumerate_groups
+    from repro_torch.models.registry import get_adapter
+    from repro_torch.serving import decode as decode_mod
+    from repro_torch.serving.costs import costs_for
+    from repro_torch.serving.decode import DecodeRequest
+    from repro_torch.serving.executor import MergeAwareEngine, ModelProgram
+    from repro_torch.serving.workload import instances_from_store
+
+    adapter, cfg, mids = get_adapter("dense"), _graph_cfg(), ("A", "B", "C")
+    zoo = {m: adapter.init(cfg, seed=i, device=device) for i, m in enumerate(mids)}
+    trunk = adapter.split(cfg).prefix_paths
+    cloud = ParamStore.from_models(dict(zoo))
+    groups = enumerate_groups([r for m in ("A", "B") for r in adapter.records(cfg, zoo[m], m)
+                               if r.path in trunk])
+    for g in groups:
+        cloud.merge_group(g)
+    plan = MergePlan.from_json(cloud.export_plan(groups, include_weights=True).to_json())
+    store = cloud if swap_at is None else ParamStore.from_models(dict(zoo))
+    eng = MergeAwareEngine(store, instances_from_store(store, "tiny-yolo"),
+                           [ModelProgram.from_adapter(adapter, m, cfg=cfg) for m in mids],
+                           capacity_bytes=10 ** 9, costs={"tiny-yolo": costs_for("tiny-yolo")},
+                           buckets=(1, 2, 4), simulate_dma=False)
+    g = torch.Generator().manual_seed(7)
+    reqs = [DecodeRequest(m, torch.randint(0, cfg.vocab_size, (9,), generator=g).numpy(),
+                          max_new_tokens=6) for _ in range(2) for m in mids]
+
+    def on_step(dec, step):
+        if step == swap_at:
+            assert eng.apply_plan(plan)["epoch_bumps"] == 1
+
+    if eager:
+        monkeypatch.setattr(decode_mod, "StepGraphs", lambda device: None)
+    ops.reset_kernel_launches()
+    stats = eng.serve_decode(reqs, page_size=4, num_pages=32, max_slots=6, max_len=16,
+                             record_logits=True, chunked_prefill=True, on_step=on_step)
+    monkeypatch.undo()
+    return stats, eng.last_decoder.completions, ops.kernel_launches(), \
+        ops.route_launches(), eng.last_decoder
+
+
+def _same_completions(a, b):
+    assert len(a) == len(b) > 0
+    for x, y in zip(a, b):
+        assert x.request.instance_id == y.request.instance_id and x.tokens == y.tokens
+        assert len(x.logits) == len(y.logits) == len(x.tokens)
+        for rx, ry in zip(x.logits, y.logits):
+            assert torch.equal(torch.from_numpy(rx), torch.from_numpy(ry))
+
+
+@pytest.mark.gpu
+def test_graphed_streaming_decode_is_bitwise_its_eager_steps(cuda_device, monkeypatch):
+    """The banked pair and the singleton replay captured graphs (every
+    shape captured in the warm-up); tokens, logits, stats and kernel
+    launches (by route too) equal those of the same steps run eagerly."""
+    stats, comps, launches, routes, dec = _stream(cuda_device, monkeypatch, eager=False)
+    estats, ecomps, elaunches, eroutes, edec = _stream(cuda_device, monkeypatch, eager=True)
+    assert edec.graphs is None and dec.graphs.replays > 0
+    assert dec.graphs.replays == (stats["trunk_dispatches"] + stats["singleton_dispatches"]
+                                  + stats["prefill_chunk_dispatches"])
+    assert dec.trunk_passes == edec.trunk_passes
+    assert {k: v for k, v in stats.items() if k not in ("elapsed_s", "tokens_per_s")} == \
+        {k: v for k, v in estats.items() if k not in ("elapsed_s", "tokens_per_s")}
+    assert stats["bank_dispatches"] == stats["group_steps"] > 0
+    assert launches == elaunches and routes == eroutes
+    assert launches["decode_attention"] > 0 and launches["bank_matmul"] > 0
+    _same_completions(comps, ecomps)
+
+
+@pytest.mark.gpu
+def test_graphs_are_captured_again_after_a_mid_stream_plan(cuda_device, monkeypatch):
+    """Three singletons; the plan merging A and B applied after step 3: the
+    epoch move drops the graphs, the merged pair's banked step is captured
+    (once per bucket it meets) under the new epoch, and every row equals
+    the eager run's, which reads the new bindings each step."""
+    stats, comps, launches, _, dec = _stream(cuda_device, monkeypatch, eager=False, swap_at=3)
+    estats, ecomps, elaunches, _, _ = _stream(cuda_device, monkeypatch, eager=True, swap_at=3)
+    assert stats["epoch_bumps"] == estats["epoch_bumps"] == 1
+    assert stats["bank_dispatches"] == estats["bank_dispatches"] > 0
+    keys = [k for k, _ in dec.graphs.items()]
+    assert keys and all(k[-1] == dec.store.epoch for k in keys)
+    assert any(k[:2] == ("trunk", "bank") for k in keys)
+    assert dec.graphs.captures > len(keys)  # the first epoch's graphs were dropped
+    assert launches == elaunches
+    _same_completions(comps, ecomps)
+
+
+@pytest.mark.gpu
+def test_graphed_edge_decode_is_bitwise_its_eager_steps(cuda_device, monkeypatch):
+    """``EdgeExecutor.serve_decode`` replays one graph per (model, step
+    length) on one zeroed cache, the warm-up capturing every prompt length
+    a model meets (two for A and B): each replay's logits equal the same
+    request's steps run eagerly on a fresh cache, bitwise; tokens and
+    kernel launches equal the eager lane's."""
+    from repro_torch.core import ParamStore
+    from repro_torch.models.registry import get_adapter
+    from repro_torch.serving import executor as executor_mod
+    from repro_torch.serving import graphs as graphs_mod
+    from repro_torch.serving.costs import costs_for
+    from repro_torch.serving.decode import DecodeRequest
+    from repro_torch.serving.executor import EdgeExecutor, ModelProgram
+    from repro_torch.serving.workload import instances_from_store
+
+    adapter, cfg, mids = get_adapter("dense"), _graph_cfg(), ("A", "B", "C")
+    store = ParamStore.from_models({m: adapter.init(cfg, seed=i, device=cuda_device)
+                                    for i, m in enumerate(mids)})
+    g = torch.Generator().manual_seed(5)
+    reqs = [DecodeRequest(mids[i % 3], torch.randint(0, cfg.vocab_size, ((9, 7)[i % 2],),
+                                                     generator=g).numpy(), max_new_tokens=5,
+                          deadline_s=10.0 + i) for i in range(5)]
+    programs = [ModelProgram.from_adapter(adapter, m, cfg=cfg) for m in mids]
+    recorded = []
+    replay = graphs_mod.StepGraphs.replay
+
+    def recording_replay(self, *a, **kw):
+        out = replay(self, *a, **kw)
+        recorded.append(out.clone())
+        return out
+
+    def lane(eager):
+        ex = EdgeExecutor(store, instances_from_store(store, "tiny-yolo"),
+                          {m: adapter.bound_forward(cfg) for m in mids}, capacity_bytes=10 ** 9,
+                          costs={"tiny-yolo": costs_for("tiny-yolo")}, simulate_dma=False)
+        if eager:
+            monkeypatch.setattr(executor_mod, "StepGraphs", lambda device: None)
+        else:
+            monkeypatch.setattr(graphs_mod.StepGraphs, "replay", recording_replay)
+        ops.reset_kernel_launches()
+        stats = ex.serve_decode(reqs, programs, max_len=16)
+        monkeypatch.undo()
+        return ex, stats, ops.kernel_launches()
+
+    ex, stats, launches = lane(eager=False)
+    eex, estats, elaunches = lane(eager=True)
+    assert eex.decode_graphs is None and ex.decode_graphs.replays == stats["steps"] == 25
+    # per model its prompt lengths and the token step: A 9, 7, 1; B 7, 9, 1; C 9, 1
+    assert ex.decode_graphs.captures == 8
+    assert launches == elaunches and launches["decode_attention"] > 0
+    assert [c.tokens for c in ex.decode_completions] == [c.tokens for c in eex.decode_completions]
+    step = adapter.decode_split(cfg).step_unpaged
+    i = 0
+    for c in ex.decode_completions:
+        params = store.materialize_cached(c.request.instance_id)
+        cache = adapter.decode_split(cfg).init_cache(1, 16, device=cuda_device)
+        for toks in [list(c.request.prompt)] + [[t] for t in c.tokens[:-1]]:
+            want, cache = step(params, cache, torch.tensor([toks], dtype=torch.int32,
+                                                           device=cuda_device))
+            assert torch.equal(recorded[i], want)
+            i += 1
+    assert i == len(recorded)
+
+
+@pytest.mark.gpu
+def test_unpaged_cache_length_lives_on_the_device(cuda_device):
+    """The dense and griffin unpaged caches keep ``length`` as a 0-d int32
+    tensor on the card, advanced in place, so a captured step reads it
+    there."""
+    from repro_torch.models import griffin, transformer
+    from repro_torch.models.griffin import GriffinConfig
+
+    gcfg = GriffinConfig(name="gpu-griffin", n_layers=3, d_model=128, d_rnn=128, n_heads=4,
+                         n_kv_heads=1, head_dim=64, d_ff=256, vocab_size=300, window=8,
+                         tie_embeddings=True, dtype="float32")
+    for mod, cfg in ((transformer, _graph_cfg()), (griffin, gcfg)):
+        params = mod.init(cfg, 0, cuda_device)
+        cache = mod.init_cache(cfg, 2, 16, device=cuda_device)
+        length = cache["length"]
+        assert length.is_cuda and length.dtype == torch.int32 and length.dim() == 0
+        _, cache = mod.decode_step(cfg, params, cache, torch.zeros((2, 3), dtype=torch.int32,
+                                                                    device=cuda_device))
+        _, cache = mod.decode_step(cfg, params, cache, torch.zeros((2, 1), dtype=torch.int32,
+                                                                    device=cuda_device))
+        assert cache["length"] is length and int(length) == 4
+
+
+@pytest.mark.gpu
+def test_a_step_that_cannot_be_captured_raises(cuda_device, monkeypatch):
+    """A trunk step that reads a value back to the host runs eagerly (the
+    warm-up) but cannot be captured: the decoder raises instead of serving
+    the step eagerly.  (Last in this file: a failed capture is left to the
+    CUDA runtime to clean up.)"""
+    import dataclasses
+
+    from repro_torch.models.registry import get_adapter
+    from repro_torch.serving.decode import DecodeRequest
+
+    adapter, cfg = get_adapter("dense"), _graph_cfg()
+    _, eng = _merged_engine("dense", cfg, ("A", "B"), cuda_device, (1, 2))
+    ds = adapter.decode_split(cfg)
+
+    def host_reading_trunk(params, pool, tables, lengths, tokens):
+        tokens.sum().item()
+        return ds.trunk_step(params, pool, tables, lengths, tokens)
+
+    bad = dataclasses.replace(ds, trunk_step=host_reading_trunk)
+    for p in eng.programs.values():
+        p.decode = bad
+    reqs = [DecodeRequest(m, torch.randint(0, cfg.vocab_size, (3,)).numpy(), max_new_tokens=2)
+            for m in ("A", "B")]
+    with pytest.raises(RuntimeError):
+        eng.serve_decode(reqs, page_size=4, num_pages=8, max_slots=2, max_len=8)
+    assert eng.last_decoder.completions == [] and eng.last_decoder.graphs.replays == 0
