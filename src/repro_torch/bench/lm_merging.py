@@ -3,6 +3,10 @@
 
     PYTHONPATH=src python -m repro_torch.bench.lm_merging [--device cuda|cpu] [--retrain]
 
+The default (tiny) config has head dim 16, which the attention kernels do
+not compile, so it runs on the CPU only; ``chip_smoke.py`` runs the bench
+on the card at stablelm-1.6b's width.
+
 Five transformer fine-tune variants — (A, B, D, E) of common trunk
 provenance with divergent heads, C an independent init — go through the
 whole pipeline: a CKA-prefiltered ``StagedPlanner`` search over the trunk

@@ -189,9 +189,13 @@ def decode_weight_entry(entry: dict, base=None) -> torch.Tensor:
 
 
 def entry_wire_bytes(entry: dict) -> int:
-    """Decoded payload bytes an entry puts on the wire (data + scale)."""
-    n = len(base64.b64decode(entry["data"])) if "data" in entry else 0
-    return n + (4 if "scale" in entry else 0)
+    """Decoded payload bytes an entry puts on the wire (data + scale),
+    counted from the base64 text (4 characters per 3 bytes, ``=``
+    padding off the last group) without decoding it: a full-width plan
+    carries gigabytes."""
+    data = entry.get("data", "")
+    pad = 2 if data.endswith("==") else 1 if data.endswith("=") else 0
+    return len(data) // 4 * 3 - pad + (4 if "scale" in entry else 0)
 
 
 def weights_wire_bytes(weights: Optional[dict]) -> int:

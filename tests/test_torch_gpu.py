@@ -1330,3 +1330,38 @@ def test_a_step_that_cannot_be_captured_raises(cuda_device, monkeypatch):
     with pytest.raises(RuntimeError):
         eng.serve_decode(reqs, page_size=4, num_pages=8, max_slots=2, max_len=8)
     assert eng.last_decoder.completions == [] and eng.last_decoder.graphs.replays == 0
+
+
+@pytest.mark.gpu
+def test_plan_wire_lane_on_the_card(cuda_device):
+    """fig14's plan-wire lane on a small float32 dense config (head dim 64,
+    which the flash kernel compiles) on the card: lm-C bitwise across the
+    delta_q8 apply, the quantized members within the drift monitor's
+    threshold, both entry kinds present, the changed buffers shipped as
+    int8 residuals, and the forwards through the flash kernel.  The zoo is
+    drawn on the CPU and moved, so the scenario (which columns lm-C binds)
+    is the one the CPU draws."""
+    import dataclasses
+
+    from repro_torch.bench import fig14_bandwidth as F14B
+    from repro_torch.bench import lm_merging as LMB
+    from repro_torch.models.transformer import DenseLMConfig
+    from repro_torch.utils.tree import flatten_paths, unflatten_paths
+
+    cfg = DenseLMConfig(name="gpu-lm", n_layers=2, d_model=128, n_heads=4, n_kv_heads=2,
+                        head_dim=64, d_ff=256, vocab_size=300, rotary_pct=0.25,
+                        norm="layernorm", dtype="float32")
+    scn = LMB.numpy_scenario(cfg, "cpu")
+
+    def move(tree):
+        return unflatten_paths({p: t.to(cuda_device) for p, t in flatten_paths(tree).items()})
+
+    scn = dataclasses.replace(scn, zoo={m: move(p) for m, p in scn.zoo.items()},
+                              calibration=move(scn.calibration))
+    before = ops.kernel_launches()["flash_attention"]
+    rows, derived, _ = F14B.plan_wire(scn, F14B.numpy_batch(cfg, cuda_device))
+    assert derived["unchanged_bitwise"] and derived["quant_within_drift"], derived
+    assert derived["changed_keys"] > 0 and derived["unchanged_keys"] > 0, derived
+    assert [r["lane"] for r in rows] == ["full", "delta", "delta_q8"]
+    assert rows[2]["n_delta_q8"] == derived["changed_keys"], rows
+    assert ops.kernel_launches()["flash_attention"] > before
