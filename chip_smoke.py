@@ -13,7 +13,9 @@ device memory still allocated and closes with its seconds):
    (``HGMMA``, ``HMMA``) of each kernel function in the built library;
 3. kernels: each Hopper kernel against its plain PyTorch version on the
    card at the main paths' shapes (the bank also at the falcon-mamba and
-   decode heads) and a few edge shapes, with the route taken, kernel,
+   decode heads; the attention kernels also at olmo/olmoe's 16 heads of
+   128 and the tiny configs' head dim 16) and a few edge shapes, with the
+   route taken, kernel,
    plain, library and bound times (bytes, operations or, for the scan,
    exponentials at the special-function units' rate); the wgmma bank
    also bitwise against its own rows at M = 1 and N = 1; every
@@ -30,7 +32,10 @@ device memory still allocated and closes with its seconds):
    settings.  These are the paper's Table 1/2 cost model, not this card's
    times.  Gate: merging swaps no more and is no less accurate, for every
    workload;
-6. for each full-width group below, three fine-tune variants (shared base,
+6. for each full-width group below, cut in depth (``FAMILY_LAYERS``:
+   stablelm-1.6b 12 of 24 layers, falcon-mamba-7b 8 of 64,
+   recurrentgemma-9b 6 of 38 as two (rec, rec, attn) periods; printed as
+   ``layers`` / ``published_layers``), three fine-tune variants (shared base,
    trunk perturbed by 0.005, head by 1.0), every trunk group merged, 8
    requests of 128 tokens per member served through ``MergeAwareEngine``
    (``<prefix>_merge`` / ``_serve``): kernel launch counts (every bank and
@@ -64,8 +69,8 @@ device memory still allocated and closes with its seconds):
    ``MergeAwareEngine.serve_decode`` (a pool of 128 pages of 16, 8 slots,
    chunked prefill, max_len 128, for recurrentgemma 2048 = its window; KV
    pages for stablelm, one state slot per request for falcon-mamba and for
-   recurrentgemma, whose slot holds the (h, conv) of 26 recurrent layers and
-   a 2048-slot KV ring for each of 12 attention layers); dispatch
+   recurrentgemma, whose slot holds the (h, conv) of its 4 recurrent layers
+   and a 2048-slot KV ring for each of its 2 attention layers); dispatch
    discipline (a banked head per group step, or for recurrentgemma's tied
    head one head per member), kernel launch counts over the streaming run
    (every mamba scan on its "step" route; rg_lru_scan once per recurrent
@@ -151,7 +156,27 @@ device memory still allocated and closes with its seconds):
    kinds, ``to_json`` / ``from_json`` / ``apply_plan`` seconds), the
    delta_q8 plan applied; gates: lm-C bitwise, the others within the
    drift monitor's threshold, both entry kinds, flash launched;
-   ``wire_ratio_delta_q8`` printed beside the reference's 0.35;
+   ``wire_ratio_delta_q8`` printed beside the reference's 0.35 (the
+   cloud keeps the reference's float32 sums, so the changed buffers ship
+   as float32 ``full`` entries);
+9d. GEMEL across model families (``repro_torch.bench.mixed_zoo``): the
+   mixed zoo at the adapters' defaults (``mixed_zoo``: head dim 16,
+   float32) and at the published widths of olmo-1b, olmoe-1b-7b,
+   falcon-mamba-7b and recurrentgemma-9b, depth cut
+   (``MIXED_ZOO_LAYERS``, printed; ``mixed_zoo_full``): two variants a
+   family planned with the family-aware CKA prefilter, shipped as JSON,
+   hot-swapped into one engine on a fresh store, served (8 requests a
+   member) and stream-decoded with all four families in one decoder (one
+   slot per family); resident bytes unmerged and merged, plan bytes,
+   committed, cross-member and cross-family groups, ``pruned_cross_family``,
+   each stage's seconds, peak device memory and each kernel's launches.
+   Gates: the bench's (four families, a cross-member and a cross-family
+   group, memory saved, served rows bitwise their replay, banked rows
+   within 2e-2 of the row maximum, the decode replay within the dtype's
+   tolerance) and all six kernels launched.  Before them,
+   ``lm_bench_defaults`` runs ``python -m repro_torch.bench.<name>`` for
+   lm_merging, decode_serve and fig14_bandwidth at their defaults (head
+   dim 16), each holding its own gates;
 10. joint retraining on the card (``small_cnn_retrain``):
    ``examples/quickstart.py``'s two pretrained small CNNs through
    ``IncrementalMerger`` with ``MergeTrainer``; each attempt's shared
@@ -201,6 +226,10 @@ PLAN_MIN_SIMILARITY = 0.5
 # stablelm_plan_wire; this keeps the script inside its time limit)
 PLAN_LAYERS = 6
 DRIFT_LAYERS = 6
+# the per-family merge, serve and streaming-decode phases' depth, widths
+# whole: at 24 / 64 / 38 layers their decodes and profiles took 87 / 151 /
+# 132 s and the script 830-1,086 s; stablelm-1.6b runs whole in phases 8b-9c
+FAMILY_LAYERS = {"stablelm": 12, "falcon_mamba": 8, "recurrentgemma": 6}
 # the streaming-decode phase: the pool, slot and length knobs of serve_decode
 DECODE_KW = dict(page_size=16, num_pages=128, max_slots=8, max_len=128, buckets=BUCKETS,
                  chunked_prefill=True)
@@ -618,6 +647,16 @@ def kernel_checks(torch) -> dict:
     # 256, window 2048 (wider than the sequence), then a window that bites
     check_flash(torch, "rgemma-trunk", 8, 128, 16, 1, 256, "bfloat16", 2048, 50, gen)
     check_flash(torch, "d256-window", 2, 512, 16, 1, 256, "bfloat16", 128, 20, gen)
+    # olmo-1b / olmoe-1b-7b attention: 16 heads of 128, causal; their decode
+    # at 8 rows.  The tiny LM configs' head dim 16: the mixed zoo's serve
+    # micro-batch (4 x 8 tokens, 2 heads, float32), a window that bites,
+    # and decode
+    check_flash(torch, "olmoe-trunk", 8, 128, 16, 16, 128, "bfloat16", None, 50, gen)
+    for dtype in ("float32", "bfloat16"):
+        check_flash(torch, "d16-tiny", 4, 8, 2, 2, 16, dtype, None, 50, gen)
+        check_flash(torch, "d16-window", 2, 256, 4, 1, 16, dtype, 8, 50, gen)
+        check_decode(torch, "d16-tiny", 4, 16, 2, 2, 16, dtype, [16, 1, 9, 0], 200, gen)
+    check_decode(torch, "olmoe-decode", 8, 128, 16, 16, 128, "bfloat16", ragged, 200, gen)
     return main
 
 
@@ -747,6 +786,15 @@ def lm_zoo(torch, adapter, cfg, mids=LM_MIDS, trunk_scale: float = 0.005) -> dic
     return zoo
 
 
+def cut_depth(cfg, n_layers: int):
+    """``cfg`` at ``n_layers`` with its widths whole; a griffin config takes
+    whole (rec, rec, attn) periods."""
+    cut = dataclasses.replace(cfg, n_layers=n_layers)
+    if hasattr(cfg, "pattern"):
+        cut = dataclasses.replace(cut, pattern=("rec", "rec", "attn"))
+    return cut
+
+
 def start_phase(torch, name: str) -> float:
     """Free what the previous phase left, print the device memory still
     allocated, and return the phase's start time."""
@@ -799,7 +847,8 @@ def lm_merge_and_serve(torch, prefix: str, adapter, cfg, store, built: dict,
     merged = store.resident_bytes()
     torch.cuda.empty_cache()
     unmerged = built["resident_bytes_unmerged"]
-    emit(f"{prefix}_merge", config=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+    emit(f"{prefix}_merge", config=cfg.name, layers=cfg.n_layers,
+         published_layers=built["published_layers"], d_model=cfg.d_model,
          vocab=cfg.padded_vocab, dtype=cfg.dtype, tied=cfg.tie_embeddings,
          init_s=built["init_s"], shared_keys=shared, resident_bytes_unmerged=unmerged,
          resident_bytes_merged=merged, saved_fraction=1 - merged / unmerged,
@@ -1896,15 +1945,6 @@ def fig7_phase(torch) -> tuple:
     return launches, routes
 
 
-def f32_sum_excess_json_bytes(numel: int) -> int:
-    """The JSON bytes a changed bf16 buffer of ``numel`` elements adds to a
-    plan when shipped as the reference's float32 sum (``full``, 4 bytes an
-    element, dtype "float32") instead of the port's bf16 one (``full``, 2
-    bytes, "bfloat16"): base64 takes 4 characters per 3 bytes."""
-    return (4 * -(-4 * numel // 3) - 4 * -(-2 * numel // 3)
-            + len('"float32"') - len('"bfloat16"'))
-
-
 def stablelm_plan_wire_phase(torch, cfg) -> tuple:
     """fig14's plan-wire lane (``bench.fig14_bandwidth.plan_wire``) on the
     full-width stablelm-1.6b zoo of ``stablelm_lm_serve``
@@ -1918,15 +1958,17 @@ def stablelm_plan_wire_phase(torch, cfg) -> tuple:
     lane's JSON and payload bytes and entry kinds, the wire ratios (the
     delta_q8 one beside the reference's 0.35 gate, not held: bf16 is not
     quantized, in either package), the seconds of every export, ``to_json``,
-    ``from_json`` and ``apply_plan``.  Gates: lm-C's logits bitwise across
-    the delta_q8 apply, the quantized members within the drift monitor's
-    threshold, both entry kinds present, flash launched.  Also printed
-    (``reference_f32_sum``): the JSON bytes and wire ratios the lane would
-    read with the reference's retraining arithmetic, which keeps a bf16
-    buffer's ramped sum in float32 (``fig14_bandwidth.retrained``): every
-    changed buffer then ships as float32 ``full`` in each lane, computed
-    from the measured bytes by :func:`f32_sum_excess_json_bytes`.  Returns
-    (kernel launches, their routes)."""
+    ``from_json`` and ``apply_plan``.  The cloud's "retraining" keeps the
+    reference's float32 sums (``fig14_bandwidth.retrained``), so every
+    changed buffer ships as a float32 ``full`` entry and the edge computes
+    with it: a float32 embedding table makes the whole residual stream
+    float32, and flash then takes its float32 route.  Gates: the changed
+    buffers float32 on the cloud, lm-C's logits bitwise across the
+    delta_q8 apply, the quantized members within the drift monitor's
+    threshold, both entry kinds present, flash launched, and every bank and
+    flash launch on the tensor-core route unless the embedding table
+    changed (then flash's float32 route taken).  Returns (kernel
+    launches, their routes)."""
     from repro_torch.bench import fig14_bandwidth as F14B
     from repro_torch.bench import lm_merging as LMB
     from repro_torch.core import ParamStore, RepresentationSimilarityScorer, StagedPlanner
@@ -1978,16 +2020,13 @@ def stablelm_plan_wire_phase(torch, cfg) -> tuple:
     c_keys = set(cloud.bindings[F14B.UNTOUCHED].values())
     changed = [k for k in cloud.shared_keys() if k not in c_keys]
     assert len(changed) == derived["changed_keys"], (len(changed), derived["changed_keys"])
-    assert all(cloud.buffers[k].dtype == torch.bfloat16 for k in changed)
-    excess = sum(f32_sum_excess_json_bytes(cloud.buffers[k].numel()) for k in changed)
-    ref_bytes = {r["lane"]: r["json_bytes"] + excess for r in rows}
-    reference_f32_sum = dict(json_bytes=ref_bytes,
-                             wire_ratio_delta=ref_bytes["delta"] / ref_bytes["full"],
-                             wire_ratio_delta_q8=ref_bytes["delta_q8"] / ref_bytes["full"])
+    assert all(cloud.buffers[k].dtype == torch.float32 for k in changed)
+    changed_embedding = any(k in changed for k in
+                            {cloud.bindings[m]["embed/table"] for m in scn.mids})
     emit("stablelm_plan_wire", config=cfg.name, members=list(scn.mids), min_tap_cka=min_cka,
          kept_columns_by_threshold=kept_columns, planned_at=theta,
          committed_groups=res.committed, rows=rows, derived=derived, gates=gates,
-         reference_f32_sum=reference_f32_sum,
+         changed_embedding=changed_embedding,
          timed=dict(wire_ratio_delta_q8=derived["wire_ratio_delta_q8"],
                     reference_gate="<= 0.35", asserted=False),
          lane_seconds=seconds, zoo_s=zoo_s, calibration_s=calib_s, planner_s=plan_s,
@@ -1995,8 +2034,152 @@ def stablelm_plan_wire_phase(torch, cfg) -> tuple:
          seconds=time.perf_counter() - t_phase)
     assert all(gates.values()), gates
     assert launches["flash_attention"] > 0, launches
-    tensor_core_routes_only(routes)
+    if changed_embedding:  # the float32 table makes the stream float32
+        assert routes["flash_attention"]["simt"] > 0, routes
+    else:
+        tensor_core_routes_only(routes)
     return launches, routes
+
+
+# ---------------------------------------------------------------------------
+# the LM benches at their defaults (the dense adapter's tiny config, head
+# dim 16) and GEMEL across model families: the mixed zoo
+# ---------------------------------------------------------------------------
+
+LM_BENCH_DEFAULTS = ("lm_merging", "decode_serve", "fig14_bandwidth")
+SIX_KERNELS = ("mamba_scan", "rg_lru_scan", "flash_attention", "decode_attention",
+               "page_gather", "bank_matmul")
+# the full-width mixed zoo's depth: each family's published widths whole,
+# layers cut to keep the script inside its time limit (recurrentgemma at
+# one whole (rec, rec, attn) period).  The phase's time is the plan's
+# transport (JSON and base64 of every shared buffer, 7.1 GB at 4/2/4/3
+# layers: 94.5 s of wall, the script 821 s), and the three embedding
+# tables are 2.8 GB of it whatever the depth
+MIXED_ZOO_LAYERS = {"dense": 2, "moe": 1, "ssm": 2, "hybrid": 3}
+MIXED_ZOO_FULL = dict(seq=128, prompt_len=16, max_new=16,
+                      decode_kw=dict(page_size=16, num_pages=32, max_slots=4, max_len=2048,
+                                     buckets=(1, 2, 4)))
+
+
+def lm_bench_defaults_phase(torch) -> tuple:
+    """``python -m repro_torch.bench.<name>`` for lm_merging, decode_serve
+    and fig14_bandwidth at their defaults (device ``cuda``): each runs its
+    own gates and raises on a missed one.  Returns (kernel launches,
+    their routes)."""
+    import importlib
+
+    from repro_torch.kernels import ops
+
+    t_phase = start_phase(torch, "lm_bench_defaults")
+    ops.reset_kernel_launches()
+    seconds = {}
+    for name in LM_BENCH_DEFAULTS:
+        t0 = time.perf_counter()
+        importlib.import_module(f"repro_torch.bench.{name}").main([])
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+    launches, routes = ops.kernel_launches(), ops.route_launches()
+    emit("lm_bench_defaults", benches=list(LM_BENCH_DEFAULTS), bench_seconds=seconds,
+         launches=launches, route_launches=routes, seconds=time.perf_counter() - t_phase)
+    assert launches["flash_attention"] > 0 and launches["decode_attention"] > 0, launches
+    return launches, routes
+
+
+def mixed_zoo_run(torch, name: str, scn, n_per_model: int, facts: dict) -> tuple:
+    """``bench.mixed_zoo.run_zoo`` on ``scn`` with the kernel counters set
+    to 0 just before and read just after; line ``name``.  Gates: the
+    bench's own (four families served, a cross-member and a cross-family
+    group, memory saved, served rows bitwise their replay, banked rows
+    within 2e-2 of the row maximum of each member's own suffix, the decode
+    replay within the dtype's tolerance) and every one of the six kernels
+    launched.  Returns (kernel launches, their routes)."""
+    from repro_torch.bench import mixed_zoo as MZB
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_kernel_launches()
+    t0 = time.perf_counter()
+    rows, derived, info = MZB.run_zoo(scn, n_per_model)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches, routes = ops.kernel_launches(), ops.route_launches()
+    gates = MZB.gates(derived, info, scn.device)
+    replay = info["decode_replay"]
+    emit(name, **facts, rows=rows, derived=derived, gates=gates,
+         resident_bytes=dict(unmerged=info["base_resident_bytes"],
+                             merged=info["merged_resident_bytes"]),
+         pruned_cross_family=info["pruned_cross_family"],
+         pruned_prefilter=info["pruned_prefilter"], retrain_attempts=info["retrain_attempts"],
+         shared_keys=info["shared_keys"],
+         cross_family_signatures=info["cross_family_signatures"],
+         serve_stats=info["serve_stats"], decode_stats=info["decode_stats"],
+         bank_gap=info["bank_gap"], bank_gap_over_row_max=info["bank_gap_over_row_max"],
+         decode_replay=replay, stage_seconds=info["seconds"], run_s=run_s,
+         peak_memory_bytes=torch.cuda.max_memory_allocated(), launches=launches,
+         route_launches=routes)
+    assert all(gates.values()), gates
+    assert all(launches[k] > 0 for k in SIX_KERNELS), launches
+    return launches, routes
+
+
+def mixed_zoo_phase(torch) -> tuple:
+    """``bench.mixed_zoo`` at its defaults on the card: the adapters' tiny
+    configs (head dim 16, float32), 8 requests of 8 tokens a member, one
+    decode request a member of 4 + 8 tokens."""
+    from repro_torch.bench import mixed_zoo as MZB
+
+    t_phase = start_phase(torch, "mixed_zoo")
+    scn = MZB.numpy_scenario(device="cuda")
+    out = mixed_zoo_run(torch, "mixed_zoo", scn, 8, dict(configs="the adapters' defaults"))
+    emit("phase_end", name="mixed_zoo", seconds=time.perf_counter() - t_phase)
+    return out
+
+
+def mixed_zoo_full_phase(torch) -> tuple:
+    """The mixed zoo at the published widths of olmo-1b (dense, tied,
+    non-parametric LayerNorm), olmoe-1b-7b (moe: 64 experts, top-8),
+    falcon-mamba-7b (ssm) and recurrentgemma-9b (hybrid, tied), depth cut
+    (``MIXED_ZOO_LAYERS``), bf16: the bench's recipe (trunk + 0.005 N(0, 1)
+    on B, heads + 1.0), one embedding table per shape (olmo and olmoe share
+    the OLMo tokenizer's, falcon-mamba's and recurrentgemma's are shared
+    within each pair), 8 requests of 128 tokens a member on buckets (1, 2,
+    4), one decode request a member of 16 + 16 tokens (pages of 16, one
+    slot per family, graphs on).  The tied heads (olmo, recurrentgemma)
+    read the shared table, so the olmo pair's suffix is shared too and its
+    group serves per-member heads; the untied pairs take the bank."""
+    from repro_torch.bench import mixed_zoo as MZB
+    from repro_torch.configs import falcon_mamba_7b, olmo_1b, olmoe_1b_7b, recurrentgemma_9b
+
+    t_phase = start_phase(torch, "mixed_zoo_full")
+    full = {"dense": olmo_1b.full_config(), "moe": olmoe_1b_7b.full_config(),
+            "ssm": falcon_mamba_7b.full_config(), "hybrid": recurrentgemma_9b.full_config()}
+    configs = {fam: cut_depth(cfg, MIXED_ZOO_LAYERS[fam]) for fam, cfg in full.items()}
+    t0 = time.perf_counter()
+    scn = MZB.numpy_scenario(configs, "cuda", **MIXED_ZOO_FULL)
+    torch.cuda.synchronize()
+    zoo_s = time.perf_counter() - t0
+    tables: dict = {}
+    for m, (_, cfg, params) in scn.members.items():
+        t = params["embed"]["table"]
+        tables.setdefault(id(t), dict(shape=list(t.shape), configs=set(), members=[]))
+        tables[id(t)]["configs"].add(cfg.name)
+        tables[id(t)]["members"].append(m)
+    facts = dict(
+        configs={fam: dict(name=cfg.name, d_model=cfg.d_model, vocab=cfg.vocab_size,
+                           tied=cfg.tie_embeddings, dtype=cfg.dtype,
+                           layers=cfg.n_layers, published_layers=full[fam].n_layers)
+                 for fam, cfg in configs.items()},
+        depth_cut={fam: f"{configs[fam].n_layers} of {full[fam].n_layers} layers"
+                   for fam in configs},
+        embedding_tables=[dict(t, configs=sorted(t["configs"])) for t in tables.values()],
+        tied_suffix_note="olmo-1b and recurrentgemma-9b are tied: their heads read the "
+                         "shared table, so each pair's suffix is shared and served per member",
+        requests_per_member=8, buckets=MZB.BUCKETS, knobs=MIXED_ZOO_FULL,
+        zoo_s=zoo_s)
+    out = mixed_zoo_run(torch, "mixed_zoo_full", scn, 8, facts)
+    emit("phase_end", name="mixed_zoo_full", seconds=time.perf_counter() - t_phase)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2348,11 +2531,12 @@ def main() -> int:
     # tensor-core instructions in each kernel function of the built library
     sass = _build.sass_mma_counts(_build.library_path())
     mma = {kernel_name(name): c for name, c in sass.items()}
-    emit("build", seconds=build_s, cached=_build.build_info["cached"], ptxas=ptxas,
+    emit("build", seconds=build_s, cached=_build.build_info["cached"],
+         source_seconds=_build.build_info.get("source_seconds"), ptxas=ptxas,
          spilling=spilling, tensor_core_instructions=mma)
     assert not spilling, spilling
     assert any("bank_wgmma_kernel" in n and c["HGMMA"] > 0 for n, c in mma.items()), mma
-    assert sum("flash_mma_kernel" in n and c["HMMA"] > 0 for n, c in mma.items()) == 3, mma
+    assert sum("flash_mma_kernel" in n and c["HMMA"] > 0 for n, c in mma.items()) == 4, mma
 
     from repro_torch.configs import falcon_mamba_7b, recurrentgemma_9b, stablelm_1_6b
     from repro_torch.models.registry import get_adapter
@@ -2384,9 +2568,11 @@ def main() -> int:
         ("recurrentgemma", "hybrid", recurrentgemma_9b.full_config(), int(32e9),
          ("rg_lru_scan", "flash_attention"), ("rg_lru_scan",), RGEMMA_DECODE_KW),
     ]
-    for prefix, family, cfg, capacity, serve_expect, decode_expect, knobs in runs:
+    for prefix, family, full, capacity, serve_expect, decode_expect, knobs in runs:
+        cfg = cut_depth(full, FAMILY_LAYERS[prefix])
         adapter = get_adapter(family)
         store, built = lm_build(torch, prefix, adapter, cfg)
+        built["published_layers"] = full.n_layers
         # GEMEL against time/space sharing, on stablelm: the time-shared
         # lanes on the unmerged store, the engine lane after the merge
         timeshare = prefix == "stablelm"
@@ -2426,11 +2612,14 @@ def main() -> int:
     del drift_loop, run
     add(*small_cnn_lifecycle_phases(torch))
     add(*host_bench_phases(torch))
+    add(*lm_bench_defaults_phase(torch))
     t0 = start_phase(torch, "paper_benches")
     paper_benches_phase()
     emit("phase_end", name="paper_benches", seconds=time.perf_counter() - t0)
     add(*fig7_phase(torch))
     add(*stablelm_plan_wire_phase(torch, stablelm_1_6b.full_config()))
+    add(*mixed_zoo_phase(torch))
+    add(*mixed_zoo_full_phase(torch))
     t0 = start_phase(torch, "small_cnn_retrain")
     small_cnn_retrain_phase(torch)
     emit("phase_end", name="small_cnn_retrain", seconds=time.perf_counter() - t0)

@@ -4,9 +4,8 @@ batching over merged variants against the per-request decode baseline.
 
     PYTHONPATH=src python -m repro_torch.bench.decode_serve [--device cuda|cpu] [--smoke]
 
-The default (tiny) config has head dim 16, which the attention kernels do
-not compile, so it runs on the CPU only; ``chip_smoke.py`` runs the bench
-on the card at stablelm-1.6b's width.
+The default (tiny) config has head dim 16; ``chip_smoke.py`` runs the
+bench on the card at its defaults and at stablelm-1.6b's width.
 
 Three lanes over the LM fine-tune-variant scenario (``bench.lm_merging``):
 

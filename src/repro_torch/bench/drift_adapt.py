@@ -356,8 +356,8 @@ def evaluate(scn: DriftScenario, n_periods: int = N_PERIODS, drift_period: int =
     eng.serve(horizon_s=60.0)
     loop["post_swap_requests"] = extra
     mismatches: list = []
-    bitwise, bank_gap = verify_bitwise(eng, edge, scn.adapter, scn.cfg, buckets=BUCKETS,
-                                       since=since, gaps=mismatches)
+    bitwise, bank_gap, _ = verify_bitwise(eng, edge, buckets=BUCKETS, since=since,
+                                          gaps=mismatches)
 
     saved_pre = loop["unmerged_bytes"] - loop["merged_bytes"]
     saved_post = loop["unmerged_bytes"] - edge.resident_bytes()

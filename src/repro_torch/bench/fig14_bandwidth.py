@@ -20,9 +20,10 @@ Two lanes:
    * ``delta``     — against the deployed v1 buffers: unchanged keys ship
      as zero-payload ``same`` entries, changed keys still ship full;
    * ``delta_q8``  — changed float buffers as int8 residuals with
-     per-leaf amax scales (``distributed.compression``).  Only numpy's
-     floating kinds quantize, as in the reference, so a bf16 trunk ships
-     its changed buffers full here too.
+     per-leaf amax scales (``distributed.compression``).  Only a buffer
+     of its base's dtype and a numpy floating kind quantizes, as in the
+     reference, so a bf16 trunk's changed buffers (float32 sums over bf16
+     bases) ship full here too.
 
    Gates: ``delta_q8`` serialized-plan bytes <= 0.35x ``full``; after
    applying the ``delta_q8`` plan on the edge, lm-C (untouched) gives
@@ -37,16 +38,13 @@ planner calibration), the check batch and, optionally, the planned
 serialized once and that string is measured; one lane's JSON is held at a
 time.
 
-The cloud's "retraining" keeps each buffer's dtype (:func:`retrained`).
-The reference adds its float32 ramp to a bf16 buffer and keeps the float32
-sum, so at bf16 it ships the changed buffers as float32 ``full`` entries
-(twice the bytes) and hands the edge float32 buffers; at float32, the
-tiny config's dtype, the two are bitwise the same.
+The cloud's "retraining" adds the reference's float32 ramp and keeps the
+float32 sum (:func:`retrained`), as the reference's numpy promotion does:
+at bf16 the changed buffers ship as float32 ``full`` entries (twice the
+bytes of a bf16 one) and the edge holds them in float32.
 
-The default config (head dim 16) runs on the CPU only: the flash kernel
-compiles head dims 64, 128 and 256, so ``--device cuda`` (the default)
-raises there.  On the card the lane runs at stablelm-1.6b's width from
-``chip_smoke.py``.
+The default config has head dim 16; ``chip_smoke.py`` runs the lane on the
+card at its defaults and at stablelm-1.6b's width.
 """
 from __future__ import annotations
 
@@ -117,12 +115,12 @@ def retrained(value: torch.Tensor, i: int) -> torch.Tensor:
     """The cloud's stand-in for retraining the ``i``-th changed buffer:
     + 1e-3 cos(0, 1, 2, ... + i), the reference's ramp, drawn in float32
     with numpy on the host (the same bits on every device) and added in
-    float32.  The sum is cast back to the buffer's dtype, where the
-    reference keeps it in float32: a bf16 model's forward takes bf16
-    weights only."""
+    float32.  The float32 sum is kept, as the reference's numpy promotion
+    keeps it: a changed bf16 buffer ships as a float32 ``full`` entry and
+    the edge holds it in float32 (``layers.dense`` and ``unembed`` promote
+    where such a weight meets bf16 activations, as ``jnp`` does)."""
     ramp = np.cos(np.arange(value.numel(), dtype=np.float32) + i).reshape(tuple(value.shape))
-    delta = torch.from_numpy(np.float32(1e-3) * ramp).to(value.device)
-    return (value.float() + delta).to(value.dtype)
+    return value.float() + torch.from_numpy(np.float32(1e-3) * ramp).to(value.device)
 
 
 def _kind_counts(plan) -> dict:

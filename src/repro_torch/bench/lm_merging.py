@@ -3,9 +3,8 @@
 
     PYTHONPATH=src python -m repro_torch.bench.lm_merging [--device cuda|cpu] [--retrain]
 
-The default (tiny) config has head dim 16, which the attention kernels do
-not compile, so it runs on the CPU only; ``chip_smoke.py`` runs the bench
-on the card at stablelm-1.6b's width.
+The default (tiny) config has head dim 16; ``chip_smoke.py`` runs the
+bench on the card at its defaults and at stablelm-1.6b's width.
 
 Five transformer fine-tune variants — (A, B, D, E) of common trunk
 provenance with divergent heads, C an independent init — go through the
@@ -240,29 +239,33 @@ def prefix_entries(eng) -> int:
 
 
 @torch.no_grad()
-def verify_bitwise(eng, store, adapter, cfg, buckets=BUCKETS, since=0, gaps=None) -> tuple:
+def verify_bitwise(eng, store, buckets=BUCKETS, since=0, gaps=None) -> tuple:
     """Served rows against a replay of the engine's own dispatch on the same
-    bindings: each group's micro-batches are rebuilt exactly
-    (``deadline_microbatches`` is deterministic and a group drains in one
-    visit), then shared groups run the prefix once on the same padded batch
-    and the same suffix dispatch as the engine — the suffix bank for a
-    micro-batch with rows of several members of a bankable group, otherwise
-    each member's head on its rows gathered and padded onto the bucket
-    ladder — and singletons the composed forward.  ``since`` restricts the
-    check to completions appended after that index.  Returns ``(bitwise,
-    bank_gap)``: ``bitwise`` is True iff every row equals its replay
-    bitwise (``gaps``, when a list, receives ``(instance_id, meta,
+    bindings, each instance through its own program (so a mixed zoo's
+    griffin suffix never replays a transformer head): each group's
+    micro-batches are rebuilt exactly (``deadline_microbatches`` is
+    deterministic and a group drains in one visit), then shared groups run
+    the prefix once on the same padded batch and the same suffix dispatch
+    as the engine — the suffix bank for a micro-batch with rows of several
+    members of a bankable group, otherwise each member's head on its rows
+    gathered and padded onto the bucket ladder — and singletons the
+    composed forward.  ``since`` restricts the check to completions
+    appended after that index.  Returns ``(bitwise, bank_gap,
+    bank_gap_over_row_max)``: ``bitwise`` is True iff every row equals its
+    replay bitwise (``gaps``, when a list, receives ``(instance_id, meta,
     max_abs_gap)`` for each row that does not); ``bank_gap`` is the largest
     absolute gap of a banked row to the member's own ``suffix`` run over
     the whole batch, the JAX package's check, which holds the bank against
-    a second path (0.0 when no micro-batch was banked).
+    a second path, and ``bank_gap_over_row_max`` the largest such gap over
+    the largest magnitude of the member's own row (both 0.0 when no
+    micro-batch was banked).
 
     The JAX package's replay runs each member's suffix over the WHOLE batch
     and takes the member's row; that is bitwise there because XLA's CPU
     GEMMs give a row the same bits at any batch size.  torch's CPU GEMMs do
     not, and on the card the bank is its own kernel, so this replay repeats
     the dispatch the engine made."""
-    sp = adapter.split(cfg)
+    progs = eng.programs
     completions = eng.completions[since:]
     res = {id(c.request): c.result for c in completions}
     by_iid: dict = {}
@@ -270,34 +273,41 @@ def verify_bitwise(eng, store, adapter, cfg, buckets=BUCKETS, since=0, gaps=None
         by_iid.setdefault(c.request.instance_id, []).append(c.request)
     bad = [] if gaps is None else gaps
     n_bad = len(bad)
-    bank_gap = 0.0
+    bank_gap = bank_rel = 0.0
 
     def check(r, want):
         got = res[id(r)]
         if not torch.equal(got, want):
             bad.append((r.instance_id, r.meta, (got.float() - want.float()).abs().max().item()))
 
+    def params(iid):
+        return store.materialize(progs[iid].model_id)
+
     for group in eng.prefix_groups():
         greqs = [r for iid in group for r in by_iid.get(iid, [])]
         bankable = len(group) > 1 and eng._group_bankable(tuple(group))
+        lead = progs[group[0]]
         for mb in deadline_microbatches(greqs, buckets):
             batch, _ = pad_stack([r.payload for r in mb.requests], mb.bucket)
             if len(group) == 1:
-                out = adapter.forward(cfg, store.materialize(group[0]), batch)
+                out = lead.forward(params(group[0]), batch)
                 for j, r in enumerate(mb.requests):
                     check(r, out[j])
                 continue
-            feats = sp.prefix(store.materialize(group[0]), batch)
+            feats = lead.prefix(params(group[0]), batch)
             if bankable and len({r.instance_id for r in mb.requests}) > 1:
-                bank = store.materialize_bank(tuple(group), sp.suffix_paths)
-                out = sp.bank_suffix(bank, feats)
+                bank = store.materialize_bank(tuple(progs[i].model_id for i in group),
+                                              lead.suffix_paths)
+                out = lead.bank_suffix(bank, feats)
                 slot = {iid: i for i, iid in enumerate(group)}
-                own = {iid: sp.suffix(store.materialize(iid), feats)
+                own = {iid: progs[iid].suffix(params(iid), feats)
                        for iid in {r.instance_id for r in mb.requests}}
                 for j, r in enumerate(mb.requests):
+                    got, mine = out[slot[r.instance_id], j].float(), own[r.instance_id][j].float()
                     check(r, out[slot[r.instance_id], j])
-                    bank_gap = max(bank_gap, (out[slot[r.instance_id], j].float()
-                                              - own[r.instance_id][j].float()).abs().max().item())
+                    gap = (got - mine).abs().max().item()
+                    bank_gap = max(bank_gap, gap)
+                    bank_rel = max(bank_rel, gap / max(mine.abs().max().item(), 1e-30))
                 continue
             rows: dict = {}
             for j, r in enumerate(mb.requests):
@@ -309,10 +319,10 @@ def verify_bitwise(eng, store, adapter, cfg, buckets=BUCKETS, since=0, gaps=None
                     sb = next(b for b in buckets if len(idx) <= b)
                     take = idx + [idx[-1]] * (sb - len(idx))
                     sub = feats[torch.tensor(take, device=feats.device)]
-                out = sp.suffix(store.materialize(iid), sub)
+                out = progs[iid].suffix(params(iid), sub)
                 for k, j in enumerate(idx):
                     check(mb.requests[j], out[k])
-    return len(bad) == n_bad, bank_gap
+    return len(bad) == n_bad, bank_gap, bank_rel
 
 
 def _lane_row(path: str, resident: int, stats: dict) -> dict:
@@ -358,7 +368,7 @@ def merge_and_serve(scn: LMScenario, retrain: bool = False, shipped=None, on_lan
         eng, stats, swap = _serve(scn, store, plan if with_plan else None, suffix_bank=bank)
         lane = dict(stats=stats, resident=store.resident_bytes(), swap=swap)
         if bank:
-            lane["bitwise"], lane["bank_gap"] = verify_bitwise(eng, store, scn.adapter, scn.cfg)
+            lane["bitwise"], lane["bank_gap"], _ = verify_bitwise(eng, store)
             lane["prefix_jits"] = prefix_entries(eng)
         if on_lane is not None:
             on_lane(name, eng, stats)

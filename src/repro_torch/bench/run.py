@@ -7,15 +7,9 @@
 ``cuda``) goes to every bench that touches a device; the paper's figure
 and table benches other than fig7 and fig14's plan-wire lane are host
 arithmetic.  Each bench writes ``artifacts/torch/<name>.json``.  The
-reference's ``roofline``, ``shard_serve`` and ``mixed_zoo`` are not
-ported yet.
-
-On ``cuda`` the host benches, fig7 and the small-CNN benches
-(``serve_throughput``, ``plan_search``, ``drift_adapt``, ``overload``)
-run; fig14's plan-wire lane, ``lm_merging`` and ``decode_serve`` raise,
-because the dense adapter's default config has head dim 16 and the
-attention kernels compile 64 and up.  ``chip_smoke.py`` runs those three
-on the card at stablelm-1.6b's width.
+reference's ``roofline`` and ``shard_serve`` are not ported yet; its
+``mixed_zoo``, which ``benchmarks/run.py`` does not list either, runs
+as ``python -m repro_torch.bench.mixed_zoo``.
 """
 from __future__ import annotations
 

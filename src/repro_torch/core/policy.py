@@ -66,6 +66,12 @@ class PlanGroup:
     columns: tuple  # tuple[ColumnBinding, ...]
 
 
+# to_json's stand-in for a payload: a NUL, which json.dumps writes as the
+# escape below (a plan whose other strings write it too is dumped whole)
+_PAYLOAD_MARK = "\x00"
+_PAYLOAD_MARK_JSON = '\\u0000'
+
+
 @dataclasses.dataclass(frozen=True)
 class MergePlan:
     """Ordered committed groups + binding deltas + provenance.
@@ -95,22 +101,53 @@ class MergePlan:
         return {r.model_id for pg in self.groups for c in pg.columns for r in c.members}
 
     def to_json(self, indent: Optional[int] = None) -> str:
-        return json.dumps({
-            "version": self.version,
-            "groups": [
-                {
-                    "signature": signature_to_json(pg.signature),
-                    "columns": [
-                        {"key": c.key, "donor": list(c.donor),
-                         "members": [record_to_json(r) for r in c.members]}
-                        for c in pg.columns
-                    ],
-                }
-                for pg in self.groups
-            ],
-            "provenance": self.provenance,
-            "shared_weights": self.shared_weights,
-        }, indent=indent)
+        """The plan as JSON text, ``json.dumps``'s.  The entries' payloads
+        are base64 (the wire codec's only form), which JSON writes as it
+        is, so they are spliced into the text of everything else instead
+        of passing through the encoder's per-character escaping: that took
+        most of the time of a multi-gigabyte plan.  (A payload that is not
+        base64 but for a control character would be spliced raw, and
+        ``json.loads`` refuses the text, as no decoder takes the payload.)"""
+        def document(weights: dict) -> dict:
+            return {
+                "version": self.version,
+                "groups": [
+                    {
+                        "signature": signature_to_json(pg.signature),
+                        "columns": [
+                            {"key": c.key, "donor": list(c.donor),
+                             "members": [record_to_json(r) for r in c.members]}
+                            for c in pg.columns
+                        ],
+                    }
+                    for pg in self.groups
+                ],
+                "provenance": self.provenance,
+                "shared_weights": weights,
+            }
+
+        weights, payloads = self.shared_weights, []
+        if weights:
+            slim = {}
+            for k, e in weights.items():
+                data = e.get("data")
+                if (isinstance(data, str) and data.isascii() and '"' not in data
+                        and "\\" not in data):
+                    e = {**e, "data": _PAYLOAD_MARK + str(len(payloads))}
+                    payloads.append(data)
+                slim[k] = e
+            weights = slim
+        text = json.dumps(document(weights), indent=indent)
+        if not payloads:
+            return text
+        head, *marked = text.split(_PAYLOAD_MARK_JSON)
+        if len(marked) != len(payloads):  # another string writes the mark too
+            return json.dumps(document(self.shared_weights), indent=indent)
+        out = [head]
+        for part in marked:
+            i, rest = part.split('"', 1)
+            out += [payloads[int(i)], '"', rest]
+        return "".join(out)
 
     @classmethod
     def from_json(cls, payload: str) -> "MergePlan":
@@ -213,6 +250,35 @@ def calibration_activations(members: dict, batch: dict) -> dict:
             for mid, (adapter, cfg, params) in members.items()}
 
 
+# Mixed-zoo trunk eligibility: families whose trunk-internal layers are
+# op-congruent and may share a buffer when signatures match.  dense and moe
+# blocks run the same attention op sequence, so their attention and norm
+# leaves may merge; the ssm mixer and the griffin recurrence are other
+# computations even where a shape coincides, so a trunk column never mixes
+# them with transformer trunks.  A family in no class merges its trunk
+# only with itself.
+TRUNK_COMPATIBLE: tuple = (frozenset({"dense", "moe"}),)
+
+# Interface layers — the token embedding and the final-norm/unembedding
+# suffix — compute the same op in every LM family, so cross-family sharing
+# there is decided by signature and CKA alone.
+INTERFACE_PREFIXES: tuple = ("embed", "final_norm", "lm_head")
+
+
+def trunk_mergeable(fam_a: Optional[str], fam_b: Optional[str]) -> bool:
+    """May trunk-internal layers of these two families share a buffer?  An
+    unknown family merges only with itself."""
+    if fam_a == fam_b:
+        return True
+    if fam_a is None or fam_b is None:
+        return False
+    return any(fam_a in c and fam_b in c for c in TRUNK_COMPATIBLE)
+
+
+def is_interface_path(path: str) -> bool:
+    return path.split("/", 1)[0] in INTERFACE_PREFIXES
+
+
 class RepresentationSimilarityScorer(MemoryForwardScorer):
     """Training-free prefilter: prune group members whose calibration-batch
     activations diverge from the rest of their column, *before* any retrain
@@ -220,17 +286,52 @@ class RepresentationSimilarityScorer(MemoryForwardScorer):
 
     ``activations``: {model_id: {layer_key: (N, ...) array}}, with layer
     keys as :func:`default_layer_key` maps record paths.  Records with no
-    probe are conservatively kept."""
+    probe are conservatively kept.
+
+    ``families``: optional {model_id: family name} for a mixed zoo: a
+    trunk-internal column is first cut to its largest :func:`trunk_mergeable`
+    class (``pruned_cross_family`` counts the records cut), while interface
+    layers (:data:`INTERFACE_PREFIXES`) stay cross-family and CKA decides."""
 
     name = "representation-similarity"
 
-    def __init__(self, activations: dict, min_similarity: float = 0.5):
+    def __init__(self, activations: dict, min_similarity: float = 0.5,
+                 families: Optional[dict] = None):
         self.activations = activations
         self.min_similarity = min_similarity
+        self.families = families
         self.pruned_members = 0
         self.pruned_groups = 0
+        self.pruned_cross_family = 0
         self._sim_cache: dict = {}
         self._gram_cache: dict = {}
+
+    @classmethod
+    def from_adapters(cls, members: dict, batch: dict, min_similarity: float = 0.5):
+        """The scorer through the adapter contract: ``members = {model_id:
+        (adapter, cfg, params)}`` and one shared calibration batch.  Each
+        adapter's ``family`` tag sets the mixed-zoo eligibility."""
+        return cls(calibration_activations(members, batch), min_similarity,
+                   families={mid: adapter.family for mid, (adapter, _, __) in members.items()})
+
+    def _family_filter(self, col: list) -> list:
+        """Keep the largest trunk-compatible class of a trunk-internal
+        column (ties: the class whose least member key sorts first).
+        Interface columns pass through."""
+        if not self.families or all(is_interface_path(r.path) for r in col):
+            return col
+        classes: list = []
+        for r in col:
+            fam = self.families.get(r.model_id)
+            for cl in classes:
+                if trunk_mergeable(fam, self.families.get(cl[0].model_id)):
+                    cl.append(r)
+                    break
+            else:
+                classes.append([r])
+        best = min(classes, key=lambda cl: (-len(cl), sorted(r.key for r in cl)[0]))
+        self.pruned_cross_family += len(col) - len(best)
+        return best
 
     def _gram(self, record: LayerRecord):
         lk = default_layer_key(record.path)
@@ -302,6 +403,10 @@ class RepresentationSimilarityScorer(MemoryForwardScorer):
         broken: set = set()  # models whose appearance chain broke earlier
         for col in group.columns():
             col = [r for r in col if r.model_id not in broken]
+            if len(col) >= 2:
+                fcol = self._family_filter(col)
+                broken |= {r.model_id for r in col} - {r.model_id for r in fcol}
+                col = fcol
             if len(col) < 2:
                 kept.extend(col)  # unshared appearance: keeps ranks aligned
                 continue
@@ -345,6 +450,11 @@ class CoherenceSurrogateTrainer:
     def __init__(self, activations: dict, min_similarity: float = 0.5):
         self.probe = RepresentationSimilarityScorer(activations, min_similarity)
         self.calls = 0
+
+    @classmethod
+    def from_adapters(cls, members: dict, batch: dict, min_similarity: float = 0.5):
+        """The adapter-contract constructor, as the scorer's."""
+        return cls(calibration_activations(members, batch), min_similarity)
 
     def train(self, store, models, group=None):
         from repro_torch.core.merging import MergeResult

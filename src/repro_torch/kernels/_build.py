@@ -16,6 +16,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional
 
@@ -78,12 +79,18 @@ def build() -> Path:
             cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
             procs.append((src, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-        reports = {}
+
+        def finish(proc):  # drain one compiler's output; when it ended
+            log, _ = proc.communicate()
+            return log, time.perf_counter() - t0
+
+        with ThreadPoolExecutor(len(procs)) as pool:
+            done = list(pool.map(finish, [p for _, _, p in procs]))
+        reports = {src.name: log for (src, _, _), (log, _) in zip(procs, done)}
+        source_seconds = {src.name: s for (src, _, _), (_, s) in zip(procs, done)}
         for src, _, p in procs:
-            log, _ = p.communicate()
-            reports[src.name] = log
             if p.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src.name}:\n{log}")
+                raise RuntimeError(f"nvcc failed on {src.name}:\n{reports[src.name]}")
         tmp_lib = Path(tmp) / "libkernels.so"
         link = subprocess.run(
             [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp_lib),
@@ -94,7 +101,7 @@ def build() -> Path:
         out_dir.mkdir(parents=True, exist_ok=True)
         os.replace(tmp_lib, lib)  # atomic: a reader never sees a partial file
     build_info.update(cached=False, seconds=time.perf_counter() - t0,
-                      ptxas=reports)
+                      ptxas=reports, source_seconds=source_seconds)
     return lib
 
 

@@ -40,7 +40,7 @@
 //     chunk order.  So one wrapper call is one launch, and every sum runs
 //     in an order fixed by the key positions: repeat launches give the
 //     same bits.
-// Head dims 64 and 128 are compiled; G may be 1 to 16 (compiled for 1, 2,
+// Head dims 16, 64 and 128 are compiled; G may be 1 to 16 (compiled for 1, 2,
 // 4, 8 and 16 heads; a G in between runs the next one with idle heads).
 
 #include <cuda_runtime.h>
@@ -386,6 +386,8 @@ template <typename T>
 cudaError_t launch_d(const void* q, const void* k, const void* v, const int* lengths,
                      void* o, float* ws, int* counters, int B, int Smax, int Hq, int Hkv,
                      int D, float scale, cudaStream_t stream) {
+  if (D == 16)
+    return launch_g<T, 16>(q, k, v, lengths, o, ws, counters, B, Smax, Hq, Hkv, scale, stream);
   if (D == 64)
     return launch_g<T, 64>(q, k, v, lengths, o, ws, counters, B, Smax, Hq, Hkv, scale, stream);
   if (D == 128)

@@ -17,8 +17,9 @@
 // 0.54 GFLOP, 0.55 us at the bf16 tensor-core peak: it is bound by bytes.
 // At recurrentgemma-9b's (16 query heads of 256 on one kv head) likewise.
 //
-// "mma" -- bf16 at head dims 64, 128 and 256: FlashAttention-2's shape on
-// the tensor cores.
+// "mma" -- bf16 at head dims 16, 64, 128 and 256: FlashAttention-2's shape
+// on the tensor cores (at D = 16, QK^T is one k-step of the m16n8k16 product
+// and PV two 8-wide column tiles).
 //   * grid (64-row query tile, q head, batch), 4 warps of 16 query rows;
 //   * the q tile and a double buffer of K and V tiles (64 keys, 32 at
 //     D = 256) are copied into shared memory as bf16 with cp.async (a ragged
@@ -216,10 +217,12 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 }
 
 // byte offset of 16-byte chunk `ch` of row `row` in a tile of CH chunks a
-// row: the chunk index is XORed with the row's low 3 bits
+// row: the chunk index is XORed with the row's low 3 bits, or at D = 16 (two
+// chunks a row) with its lowest bit, so the chunk stays inside its row
 template <int CH>
 __device__ __forceinline__ uint32_t swz(int row, int ch) {
-  return (uint32_t)(row * CH + (ch ^ (row & 7))) * 16u;
+  constexpr int MASK = CH < 8 ? CH - 1 : 7;
+  return (uint32_t)(row * CH + (ch ^ (row & MASK))) * 16u;
 }
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
@@ -471,13 +474,14 @@ extern "C" int flash_attention_simt_launch(const void* q, const void* k, const v
   if (!valid_shape(B, S, Hq, Hkv)) return (int)cudaErrorInvalidValue;
   if (Hq > 65535 || B > 65535) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 16) return (int)simt::launch<16>(q, k, v, o, B, S, Hq, Hkv, causal, window, scale, s);
   if (D == 64) return (int)simt::launch<64>(q, k, v, o, B, S, Hq, Hkv, causal, window, scale, s);
   if (D == 128) return (int)simt::launch<128>(q, k, v, o, B, S, Hq, Hkv, causal, window, scale, s);
   if (D == 256) return (int)simt::launch<256>(q, k, v, o, B, S, Hq, Hkv, causal, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// Route "mma": bfloat16 q, k, v, o; D in {64, 128, 256}.  window <= 0 means
+// Route "mma": bfloat16 q, k, v, o; D in {16, 64, 128, 256}.  window <= 0 means
 // no window.  Returns cudaError_t.
 extern "C" int flash_attention_mma_launch(const void* q, const void* k, const void* v,
                                           void* o, int B, int S, int Hq, int Hkv, int D,
@@ -486,6 +490,7 @@ extern "C" int flash_attention_mma_launch(const void* q, const void* k, const vo
   if (!valid_shape(B, S, Hq, Hkv)) return (int)cudaErrorInvalidValue;
   if (Hq > 65535 || B > 65535) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 16) return (int)tc::launch<16>(q, k, v, o, B, S, Hq, Hkv, causal, window, scale, s);
   if (D == 64) return (int)tc::launch<64>(q, k, v, o, B, S, Hq, Hkv, causal, window, scale, s);
   if (D == 128) return (int)tc::launch<128>(q, k, v, o, B, S, Hq, Hkv, causal, window, scale, s);
   if (D == 256) return (int)tc::launch<256>(q, k, v, o, B, S, Hq, Hkv, causal, window, scale, s);

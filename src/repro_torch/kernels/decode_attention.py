@@ -3,7 +3,7 @@
 
 One query per row: q ``(B, Hq, D)`` attends to the caches k, v
 ``(B, Smax, Hkv, D)`` up to ``lengths[b]`` (int32 ``(B,)``, on the device);
-the output has q's dtype.  Head dims 64 and 128 and up to 16 query heads per
+the output has q's dtype.  Head dims 16, 64 and 128 and up to 16 query heads per
 kv head are compiled; a row of length 0 gives exact zeros.  This function
 takes CUDA tensors only; the ops layer sends CPU tensors to
 ``ref.decode_attention_ref``.
@@ -27,7 +27,7 @@ import torch
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (16, 64, 128)
 MAX_GROUP = 16  # query heads per kv head
 CHUNK = 128  # keys per block; csrc/decode_attention.cu's CHUNK, checked at launch
 

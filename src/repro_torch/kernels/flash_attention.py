@@ -1,8 +1,8 @@
 """Wrapper of the hand-written Hopper flash attention (``csrc/flash_attention.cu``).
 
 Causal or sliding-window grouped-query attention over q ``(B, S, Hq, D)``
-and k, v ``(B, S, Hkv, D)``; the output has q's dtype.  Head dims 64, 128
-and 256 are compiled; ragged S is masked by the kernel.  Two kernels,
+and k, v ``(B, S, Hkv, D)``; the output has q's dtype.  Head dims 16, 64,
+128 and 256 are compiled; ragged S is masked by the kernel.  Two kernels,
 picked by :func:`route` from dtype and head dim alone: bf16 takes the
 tensor-core kernel (``"mma"``), float32 the CUDA-core one (``"simt"``).
 This function takes CUDA tensors only; the ops layer sends CPU tensors to
@@ -18,7 +18,7 @@ import torch
 from repro_torch.kernels import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (16, 64, 128, 256)
 ROUTES = ("mma", "simt")
 
 

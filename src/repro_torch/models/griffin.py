@@ -190,11 +190,13 @@ def _rglru_coeffs(p: dict, x: torch.Tensor) -> tuple:
 
 
 def _recurrent_mixer(cfg: GriffinConfig, p: dict, x: torch.Tensor,
-                     state: Optional[dict] = None) -> tuple:
+                     state: Optional[dict] = None, taps: Optional[dict] = None,
+                     tap_path: str = "") -> tuple:
     """Griffin recurrent block: x (B, S, d); state {"h": (B, dr) float32,
     "conv": (B, K-1, dr)} or None (zeros).  Returns (y (B, S, d), new
     state).  The recurrence goes through ``ops.rg_lru_scan`` at any S, a
-    single decode token included."""
+    single decode token included.  ``taps`` collects the sub-layer
+    responses keyed by param-path prefix, as the JAX package's do."""
     B = x.shape[0]
     xb = L.dense(x, p["in_x"]["w"])  # (B, S, dr) recurrent branch
     gate = F.gelu(L.dense(x, p["in_gate"]["w"]).float(), approximate="tanh")
@@ -205,6 +207,10 @@ def _recurrent_mixer(cfg: GriffinConfig, p: dict, x: torch.Tensor,
         (B, cfg.d_rnn), dtype=torch.float32, device=x.device)
     h_all, h_last = kops.rg_lru_scan(a, b, h0.contiguous())
     y = L.dense((h_all * gate).to(x.dtype), p["out_proj"]["w"])
+    if taps is not None:
+        taps.update({tap_path + "/in_x": xb, tap_path + "/in_gate": gate,
+                     tap_path + "/conv": xc, tap_path + "/rglru": h_all,
+                     tap_path + "/out_proj": y})
     return y, {"h": h_last, "conv": new_conv}
 
 
@@ -266,15 +272,24 @@ def _attn_decode(cfg: GriffinConfig, p: dict, cache_l: dict, x: torch.Tensor,
 
 
 def _layer(cfg: GriffinConfig, kind: str, p: dict, x: torch.Tensor,
-           positions: torch.Tensor) -> torch.Tensor:
+           positions: torch.Tensor, taps: Optional[dict] = None,
+           tap_path: str = "") -> torch.Tensor:
     h = L.apply_norm(cfg.norm, x, p.get("ln1", {}))
+    if taps is not None:
+        taps[tap_path + "/ln1"] = h
     if kind == "rec":
-        y, _ = _recurrent_mixer(cfg, p["rec"], h)
+        y, _ = _recurrent_mixer(cfg, p["rec"], h, taps=taps, tap_path=tap_path + "/rec")
     else:
         y = _attn_full(cfg, p["attn"], h, positions)
+        if taps is not None:
+            taps[tap_path + "/attn"] = y
     x = x + y
     h = L.apply_norm(cfg.norm, x, p.get("ln2", {}))
-    return x + L.ffn(h, p["mlp"], act=cfg.act, gated=cfg.gated_ffn)
+    f = L.ffn(h, p["mlp"], act=cfg.act, gated=cfg.gated_ffn)
+    if taps is not None:
+        taps[tap_path + "/ln2"] = h
+        taps[tap_path + "/mlp"] = f
+    return x + f
 
 
 def _embed(cfg: GriffinConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -287,7 +302,8 @@ def _embed(cfg: GriffinConfig, params: dict, tokens: torch.Tensor) -> torch.Tens
 
 
 def trunk(cfg: GriffinConfig, params: dict, tokens: torch.Tensor,
-          positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+          positions: Optional[torch.Tensor] = None,
+          taps: Optional[dict] = None) -> torch.Tensor:
     """Embedding (scaled by sqrt(d_model), as gemma does) + griffin repeats —
     the mergeable *prefix*.  Returns pre-final-norm hidden states (B, S, d).
     Only the standard positions 0..S-1 are served: packed or offset
@@ -299,10 +315,13 @@ def trunk(cfg: GriffinConfig, params: dict, tokens: torch.Tensor,
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
     x = _embed(cfg, params, tokens)
+    if taps is not None:
+        taps["embed"] = x
     for r in range(cfg.n_repeats):
         rep = params["repeats"][str(r)]
         for i, kind in enumerate(cfg.pattern):
-            x = _layer(cfg, kind, rep[f"{i}_{kind}"], x, positions)
+            x = _layer(cfg, kind, rep[f"{i}_{kind}"], x, positions, taps=taps,
+                       tap_path=f"repeats/{r}/{i}_{kind}")
     return x
 
 
@@ -312,20 +331,40 @@ def _softcap(cfg: GriffinConfig, logits: torch.Tensor) -> torch.Tensor:
     return torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
 
 
-def head(cfg: GriffinConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+def head(cfg: GriffinConfig, params: dict, x: torch.Tensor,
+         taps: Optional[dict] = None) -> torch.Tensor:
     """Final norm + softcapped unembedding — the private *suffix*."""
-    x = L.apply_norm(cfg.norm, x, params.get("final_norm", {}))
+    fn = params.get("final_norm", {})
+    x = L.apply_norm(cfg.norm, x, fn)
+    if taps is not None and fn:
+        taps["final_norm"] = x
     if cfg.tie_embeddings:
-        logits = L.unembed(x, params["embed"]["table"], transpose=True)
-    else:
-        logits = L.unembed(x, params["lm_head"]["w"], transpose=False)
-    return _softcap(cfg, logits)
+        return _softcap(cfg, L.unembed(x, params["embed"]["table"], transpose=True))
+    logits = _softcap(cfg, L.unembed(x, params["lm_head"]["w"], transpose=False))
+    if taps is not None:
+        taps["lm_head"] = logits
+    return logits
 
 
 def forward(cfg: GriffinConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, padded_vocab) float32, composed as
     ``head(trunk(x))`` so the serving split is bitwise identical to it."""
     return head(cfg, params, trunk(cfg, params, tokens))
+
+
+def loss_fn(cfg: GriffinConfig, params: dict, batch: dict) -> torch.Tensor:
+    logits = forward(cfg, params, batch["tokens"])
+    return L.softmax_cross_entropy(logits, batch["labels"], valid_vocab=cfg.vocab_size,
+                                   mask=batch.get("mask"))
+
+
+@torch.no_grad()
+def layer_activations(cfg: GriffinConfig, params: dict, tokens: torch.Tensor) -> dict:
+    """Calibration-batch activations for every layer, keyed by param-path
+    prefix, as float32 numpy on the host."""
+    taps: dict = {}
+    head(cfg, params, trunk(cfg, params, tokens, taps=taps), taps=taps)
+    return {k: v.float().cpu().numpy() for k, v in taps.items()}
 
 
 def trunk_paths(params: dict) -> frozenset:

@@ -184,10 +184,13 @@ def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None):
     """x @ w (+ b), float32 accumulation, one rounding to x's dtype — the
     reference's ``einsum(preferred_element_type=f32).astype(x.dtype)``.
     Without a bias one same-dtype GEMM does exactly that (float32 and bf16
-    GEMMs accumulate in float32 on the card and on the CPU)."""
-    if b is None:
+    GEMMs accumulate in float32 on the card and on the CPU).  A weight of
+    another dtype than x (a float32 buffer shipped to a bf16 model) is
+    promoted as ``jnp`` promotes the pair: both widened to float32."""
+    if b is None and w.dtype == x.dtype:
         return torch.matmul(x, w)
-    return (torch.matmul(x.float(), w.float()) + b.float()).to(x.dtype)
+    out = torch.matmul(x.float(), w.float())
+    return (out if b is None else out + b.float()).to(x.dtype)
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:

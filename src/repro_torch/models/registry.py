@@ -1,7 +1,8 @@
 """MergeableAdapter — the merge pipeline's model-facing contract (the port
-of ``repro.models.registry``: the merge, split-serve and decode tiers, and
-the calibration tier of small_cnn and dense; the ssm and hybrid calibration
-tiers wait for a later slice).
+of ``repro.models.registry``: the merge, calibration, split-serve and
+decode tiers of small_cnn and the four token-LM families, dense, ssm,
+hybrid and moe; the records-only ``FamilyAdapter`` waits for a later
+slice).
 
 Everything the planner, the store and the serving engine need from a model
 family is behind one interface:
@@ -24,7 +25,7 @@ from typing import Callable, Optional, Union
 import torch
 
 from repro_torch.core.signatures import records_from_params
-from repro_torch.models import griffin, ssm, transformer, vision
+from repro_torch.models import griffin, moe, ssm, transformer, vision
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import dtype_name, flatten_paths, torch_dtype
 
@@ -293,8 +294,10 @@ class _TokenLMAdapter(MergeableAdapter):
     """Token LMs split at the final norm: the trunk (embedding + blocks) is
     the mergeable prefix, the head (final norm + unembedding) the private
     suffix.  ``module`` is the family's model module, ``init_pool_fn`` its
-    paged-pool constructor."""
+    paged-pool constructor.  One calibration-batch layout for every family,
+    so CKA compares every candidate's response to identical inputs."""
 
+    can_calibrate = True
     can_split = True
     can_decode = True
     module = None
@@ -304,8 +307,19 @@ class _TokenLMAdapter(MergeableAdapter):
         return self.module.init(cfg, seed, device)
 
     def forward(self, cfg, params, x):
-        """tokens (B, S) -> logits (B, S, V), composed as ``head(trunk(x))``."""
-        return self.module.forward(cfg, params, x)
+        """tokens (B, S) -> logits (B, S, V), composed as ``head(trunk(x))``
+        (bitwise the serving split's composition)."""
+        return self.module.head(cfg, params, self.module.trunk(cfg, params, x))
+
+    def loss(self, cfg, params, batch):
+        return self.module.loss_fn(cfg, params, batch)
+
+    def layer_activations(self, cfg, params, batch: dict) -> dict:
+        return self.module.layer_activations(cfg, params, batch["tokens"])
+
+    def decode_config(self, cfg):
+        """The config the decode split binds (the moe family's differs)."""
+        return cfg
 
     def calibration_batch(self, cfg, key, n: int, seq: int = 8) -> dict:
         """One layout for every token LM, so CKA compares every candidate's
@@ -341,6 +355,7 @@ class _TokenLMAdapter(MergeableAdapter):
     def _build_decode_split(self, cfg) -> DecodeSplit:
         mod, pool_fn = self.module, self.init_pool_fn
         sp = self.split(cfg)  # the same trunk/head congruence tiers
+        cfg = self.decode_config(cfg)
 
         def trunk_step(params, pool, tables, lengths, tokens, _cfg=cfg):
             return mod.paged_trunk_step(_cfg, params, pool, tables, lengths, tokens)
@@ -379,15 +394,8 @@ class DenseLMAdapter(_TokenLMAdapter):
 
     name = "dense"
     family = "dense"
-    can_calibrate = True
     module = transformer
     init_pool_fn = staticmethod(transformer.init_kv_pool)
-
-    def loss(self, cfg, params, batch):
-        return transformer.loss_fn(cfg, params, batch)
-
-    def layer_activations(self, cfg, params, batch: dict) -> dict:
-        return transformer.layer_activations(cfg, params, batch["tokens"])
 
     def default_config(self):
         return transformer.DenseLMConfig(
@@ -451,6 +459,30 @@ class GriffinAdapter(_TokenLMAdapter):
         return dataclasses.replace(super()._build_decode_split(cfg), init_cache=init_cache)
 
 
+class MoEAdapter(_TokenLMAdapter):
+    """Mixture-of-experts LMs.  The serving surfaces discard the router aux
+    loss (``forward`` gives logits only; ``loss`` adds the aux term through
+    ``moe.loss_fn``).  Streaming decode binds ``group_size=1``, so routing is
+    per token: each token is its own capacity group and is never dropped,
+    which makes paged and unpaged decode agree."""
+
+    name = "moe"
+    family = "moe"
+    module = moe
+    init_pool_fn = staticmethod(moe.init_kv_pool)
+
+    def default_config(self):
+        return moe.MoELMConfig(
+            name="tiny-moe", n_layers=2, d_model=32, n_heads=2, n_kv_heads=2,
+            head_dim=16, vocab_size=64, vocab_multiple=32, n_experts=4,
+            top_k=2, n_shared_experts=1, d_ff_expert=16, d_ff_dense=64,
+            first_dense_layers=0, group_size=1, tie_embeddings=False,
+        )
+
+    def decode_config(self, cfg):
+        return dataclasses.replace(cfg, group_size=1)
+
+
 ADAPTERS: dict = {}
 
 
@@ -467,3 +499,4 @@ register_adapter(SmallCNNAdapter())
 register_adapter(DenseLMAdapter())
 register_adapter(SSMAdapter())
 register_adapter(GriffinAdapter())
+register_adapter(MoEAdapter())

@@ -102,15 +102,20 @@ def init(cfg: MambaConfig, seed: int = 0, device=None) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _ssm_coeffs(cfg: MambaConfig, p: dict, xc: torch.Tensor) -> tuple:
+def _ssm_coeffs(cfg: MambaConfig, p: dict, xc: torch.Tensor,
+                taps: Optional[dict] = None, tap_path: str = "") -> tuple:
     """xc (B, S, di) post-conv activations -> the compact coefficients
     (dt, dtx, Bmat, Cmat, A), all float32; the (B, S, di, n) decay and input
     tensors are formed only inside the scan, one step at a time."""
     r, n = cfg.dt_rank, cfg.d_state
     dbc = L.dense(xc, p["x_proj"]["w"])  # (B, S, r + 2n)
+    if taps is not None:
+        taps[tap_path + "/x_proj"] = dbc
     dt_r, Bmat, Cmat = torch.split(dbc, [r, n, n], dim=-1)
     dt = L.softplus(L.dense(dt_r, p["dt_proj"]["w"]).float()
                     + p["dt_proj"]["b"].float())  # (B, S, di)
+    if taps is not None:
+        taps[tap_path + "/dt_proj"] = dt
     A = -torch.exp(p["A_log"])  # (di, n)
     dtx = dt * xc.float()
     return dt, dtx, Bmat.float(), Cmat.float(), A
@@ -134,30 +139,45 @@ def _conv1d(xz: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def _mixer(cfg: MambaConfig, p: dict, x: torch.Tensor,
-           state: Optional[dict] = None) -> tuple:
+           state: Optional[dict] = None, taps: Optional[dict] = None,
+           tap_path: str = "") -> tuple:
     """x (B, S, d); state {"h": (B, di, n), "conv": (B, K-1, di)} or None.
-    Returns (y (B, S, d), new state)."""
+    Returns (y (B, S, d), new state).  ``taps`` collects the sub-layer
+    responses keyed by param-path prefix, as the JAX package's do."""
     B = x.shape[0]
     xz = L.dense(x, p["in_proj"]["w"])  # (B, S, 2 di)
+    if taps is not None:
+        taps[tap_path + "/in_proj"] = xz
     x_ssm, z = xz.chunk(2, dim=-1)
     xc, new_conv = _conv1d(x_ssm, p["conv"]["w"], p["conv"]["b"],
                            state["conv"] if state is not None else None)
     xc = F.silu(xc.float()).to(x.dtype)
-    dt, dtx, Bmat, Cmat, A = _ssm_coeffs(cfg, p, xc)
+    if taps is not None:
+        taps[tap_path + "/conv"] = xc
+    dt, dtx, Bmat, Cmat, A = _ssm_coeffs(cfg, p, xc, taps, tap_path)
     h0 = state["h"] if state is not None else torch.zeros(
         (B, cfg.d_inner, cfg.d_state), dtype=torch.float32, device=x.device)
     y, h_last = kops.mamba_scan(dt, dtx, Bmat.contiguous(), Cmat.contiguous(), A,
                                 h0.contiguous())
     y = y + p["D"].float() * xc.float()
+    if taps is not None:
+        # keyed on the mixer prefix itself: the direct leaves A_log and D
+        # map here under core.policy.default_layer_key
+        taps[tap_path] = y
     y = y * F.silu(z.float())
     out = L.dense(y.to(x.dtype), p["out_proj"]["w"])
+    if taps is not None:
+        taps[tap_path + "/out_proj"] = out
     return out, {"h": h_last, "conv": new_conv}
 
 
 def _block(cfg: MambaConfig, p: dict, x: torch.Tensor,
-           state: Optional[dict] = None) -> tuple:
+           state: Optional[dict] = None, taps: Optional[dict] = None,
+           tap_path: str = "") -> tuple:
     h = L.apply_norm(cfg.norm, x, p.get("ln", {}))
-    y, new_state = _mixer(cfg, p["mixer"], h, state)
+    if taps is not None:
+        taps[tap_path + "/ln"] = h
+    y, new_state = _mixer(cfg, p["mixer"], h, state, taps, tap_path + "/mixer")
     return x + y, new_state
 
 
@@ -166,28 +186,54 @@ def _block(cfg: MambaConfig, p: dict, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def trunk(cfg: MambaConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+def trunk(cfg: MambaConfig, params: dict, tokens: torch.Tensor,
+          taps: Optional[dict] = None) -> torch.Tensor:
     """Embedding + mamba blocks — the mergeable *prefix*.  Returns
     pre-final-norm hidden states (B, S, d).  The recurrence is position-aware
-    by construction: no rope, no positions."""
+    by construction: no rope, no positions.  ``taps`` collects per-layer
+    probes keyed by param-path prefix."""
     x = L.embed(tokens, params["embed"]["table"])
+    if taps is not None:
+        taps["embed"] = x
     for i in range(cfg.n_layers):
-        x, _ = _block(cfg, params["blocks"][str(i)], x)
+        x, _ = _block(cfg, params["blocks"][str(i)], x, taps=taps, tap_path=f"blocks/{i}")
     return x
 
 
-def head(cfg: MambaConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+def head(cfg: MambaConfig, params: dict, x: torch.Tensor,
+         taps: Optional[dict] = None) -> torch.Tensor:
     """Final norm + unembedding — the private *suffix*.  float32 logits."""
-    x = L.apply_norm(cfg.norm, x, params.get("final_norm", {}))
+    fn = params.get("final_norm", {})
+    x = L.apply_norm(cfg.norm, x, fn)
+    if taps is not None and fn:
+        taps["final_norm"] = x
     if cfg.tie_embeddings:
         return L.unembed(x, params["embed"]["table"], transpose=True)
-    return L.unembed(x, params["lm_head"]["w"], transpose=False)
+    logits = L.unembed(x, params["lm_head"]["w"], transpose=False)
+    if taps is not None:
+        taps["lm_head"] = logits
+    return logits
 
 
 def forward(cfg: MambaConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, padded_vocab) float32, composed as
     ``head(trunk(x))`` so the serving split is bitwise identical to it."""
     return head(cfg, params, trunk(cfg, params, tokens))
+
+
+def loss_fn(cfg: MambaConfig, params: dict, batch: dict) -> torch.Tensor:
+    logits = forward(cfg, params, batch["tokens"])
+    return L.softmax_cross_entropy(logits, batch["labels"], valid_vocab=cfg.vocab_size,
+                                   mask=batch.get("mask"))
+
+
+@torch.no_grad()
+def layer_activations(cfg: MambaConfig, params: dict, tokens: torch.Tensor) -> dict:
+    """Calibration-batch activations for every layer, keyed by param-path
+    prefix, as float32 numpy on the host."""
+    taps: dict = {}
+    head(cfg, params, trunk(cfg, params, tokens, taps=taps), taps=taps)
+    return {k: v.float().cpu().numpy() for k, v in taps.items()}
 
 
 def trunk_paths(params: dict) -> frozenset:

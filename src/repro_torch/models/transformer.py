@@ -127,12 +127,24 @@ def _qkv(cfg: DenseLMConfig, p_attn: dict, x: torch.Tensor, positions: torch.Ten
     return q, k, v
 
 
+def _dense_ffn(cfg: DenseLMConfig, p: dict):
+    """The block's feed-forward as ``ffn(h, taps, tap_prefix) -> y``: the
+    dense (gated) MLP, tapped as ``mlp``."""
+    def ffn(h, taps=None, tap_prefix=""):
+        ff = L.ffn(h, p["mlp"], act=cfg.act, gated=cfg.gated_ffn)
+        if taps is not None:
+            taps[tap_prefix + "mlp"] = ff
+        return ff
+    return ffn
+
+
 def _block(cfg: DenseLMConfig, p: dict, x: torch.Tensor, positions: torch.Tensor,
-           taps: Optional[dict] = None, tap_prefix: str = "") -> torch.Tensor:
+           taps: Optional[dict] = None, tap_prefix: str = "", ffn=None) -> torch.Tensor:
     """Full-sequence block over contiguous positions; attention through
     ``ops.flash_attention``.  A non-parametric norm has no leaves, so its
     empty dict does not survive a flat-path round trip (store, bridge):
-    norms are looked up with ``.get``.
+    norms are looked up with ``.get``.  ``ffn`` (default :func:`_dense_ffn`)
+    is the feed-forward; the moe family passes its routed experts.
 
     ``taps``, when given, collects each sub-layer's response keyed by the
     param-path prefix that produces it ("blocks/0/attn", "blocks/0/mlp",
@@ -150,10 +162,7 @@ def _block(cfg: DenseLMConfig, p: dict, x: torch.Tensor, positions: torch.Tensor
     h = L.apply_norm(cfg.norm, x, p.get("ln2", {}))
     if taps is not None and p.get("ln2"):
         taps[tap_prefix + "ln2"] = h
-    ff = L.ffn(h, p["mlp"], act=cfg.act, gated=cfg.gated_ffn)
-    if taps is not None:
-        taps[tap_prefix + "mlp"] = ff
-    return x + ff
+    return x + (ffn or _dense_ffn(cfg, p))(h, taps, tap_prefix)
 
 
 def _softcap(cfg: DenseLMConfig, logits: torch.Tensor) -> torch.Tensor:
@@ -289,11 +298,11 @@ def _write_kv(cache_k, cache_v, k, v, positions: torch.Tensor, kv_repl: int):
 
 
 def _block_decode(cfg: DenseLMConfig, p: dict, cache_l: dict, x: torch.Tensor,
-                  positions: torch.Tensor, length: torch.Tensor):
+                  positions: torch.Tensor, length: torch.Tensor, ffn=None):
     """Single-step (or chunked) decode block against one cache layer.
     x (B, S_new, d); cache k/v (B, Smax, Hs, D).  One token without a window
     goes through ``ops.decode_attention``; more tokens through the plain
-    masked attention.  Returns (x, cache_l)."""
+    masked attention.  ``ffn`` as in :func:`_block`.  Returns (x, cache_l)."""
     B, Sn, _ = x.shape
     h = L.apply_norm(cfg.norm, x, p.get("ln1", {}))
     q, k, v = _qkv(cfg, p["attn"], h, positions)
@@ -311,8 +320,7 @@ def _block_decode(cfg: DenseLMConfig, p: dict, cache_l: dict, x: torch.Tensor,
         attn = L.gqa_attention(q, ck, cv, mask)
     x = x + L.dense(attn.reshape(B, Sn, -1), p["attn"]["wo"])
     h = L.apply_norm(cfg.norm, x, p.get("ln2", {}))
-    x = x + L.ffn(h, p["mlp"], act=cfg.act, gated=cfg.gated_ffn)
-    return x, {"k": ck, "v": cv}
+    return x + (ffn or _dense_ffn(cfg, p))(h), {"k": ck, "v": cv}
 
 
 def decode_step(cfg: DenseLMConfig, params: dict, cache: dict,
@@ -381,12 +389,12 @@ def _paged_view(pool_x: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
 
 
 def _block_decode_paged(cfg: DenseLMConfig, p: dict, pool_l: dict, x: torch.Tensor,
-                        tables: torch.Tensor, lengths: torch.Tensor):
+                        tables: torch.Tensor, lengths: torch.Tensor, ffn=None):
     """Single-token decode block against one paged pool layer.  x (B, 1, d);
     pool_l k/v (P, page, Hs, D); tables (B, maxp) int32; lengths (B,) int32
     tokens already cached per row (this token lands at index ``lengths``).
     Op for op the one-token path of :func:`_block_decode` on the gathered
-    contiguous view."""
+    contiguous view; ``ffn`` as in :func:`_block`."""
     B, Sn, _ = x.shape
     h = L.apply_norm(cfg.norm, x, p.get("ln1", {}))
     q, k, v = _qkv(cfg, p["attn"], h, lengths[:, None])
@@ -396,8 +404,7 @@ def _block_decode_paged(cfg: DenseLMConfig, p: dict, pool_l: dict, x: torch.Tens
     attn = kops.decode_attention(q[:, 0].contiguous(), ck, cv, lengths + 1)[:, None]
     x = x + L.dense(attn.reshape(B, Sn, -1), p["attn"]["wo"])
     h = L.apply_norm(cfg.norm, x, p.get("ln2", {}))
-    x = x + L.ffn(h, p["mlp"], act=cfg.act, gated=cfg.gated_ffn)
-    return x, {"k": pk, "v": pv}
+    return x + (ffn or _dense_ffn(cfg, p))(h), {"k": pk, "v": pv}
 
 
 def paged_trunk_step(cfg: DenseLMConfig, params: dict, pool: dict, tables: torch.Tensor,

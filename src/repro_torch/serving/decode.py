@@ -46,6 +46,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import types
+import weakref
 from collections import deque
 from typing import Any, Callable, Optional
 
@@ -264,7 +265,9 @@ class StreamingDecoder:
                  clock: Optional[Callable[[], float]] = None):
         if max_len % page_size:
             raise ValueError("max_len must be a multiple of page_size")
-        self.engine = engine
+        # weak: the engine keeps its last decoder, and a cycle between them
+        # would leave the decoder's CUDA graphs to whenever the collector runs
+        self._engine = weakref.ref(engine)
         self.store = engine.store
         # default to the engine's clock so one injected fake drives both
         self.clock = clock if clock is not None else engine.clock
@@ -301,6 +304,13 @@ class StreamingDecoder:
         }
 
     # -- plumbing -------------------------------------------------------------
+
+    @property
+    def engine(self) -> MergeAwareEngine:
+        engine = self._engine()
+        if engine is None:
+            raise ReferenceError("the decoder's engine is gone")
+        return engine
 
     def _decode(self, iid: str):
         dec = self.engine.programs[iid].decode

@@ -122,8 +122,12 @@ class StepGraphs:
         return list(self._graphs.items())
 
     def clear(self) -> None:
-        """Drop every graph (the fixed arguments they hold go with them)."""
+        """Drop every graph (the fixed arguments they hold go with them).
+        Later captures go to a fresh pool: PyTorch's allocator refuses a
+        capture into a pool whose graphs are all gone while tensors of it
+        (a caller's last outputs) are still alive."""
         self._graphs.clear()
+        self.pool = torch.cuda.graph_pool_handle()
 
     def capture(self, key, body: Callable, fixed: tuple, shapes: tuple) -> None:
         """Capture ``body`` under ``key`` unless a graph is held there."""

@@ -443,3 +443,44 @@ def test_decode_split_is_cached_and_the_engine_clock_drives_the_decoder():
     assert stats["completed"] == 2 and stats["elapsed_s"] > 0
     assert stats["elapsed_s"] == int(stats["elapsed_s"])  # read from the fake clock
     assert all(c.finished_s == int(c.finished_s) for c in eng.last_decoder.completions)
+
+
+@pytest.mark.parametrize("drop", ["engine", "decoder-replaced", "both"])
+def test_engine_and_decoder_are_freed_without_the_collector(drop):
+    """The decoder holds its engine weakly (the engine keeps its last
+    decoder), so with the collector off a replaced decoder, a dropped
+    engine, and an engine with its last decoder are each freed at once:
+    a decoder's CUDA graphs go when it does, not inside whatever capture a
+    later collection interrupts.  A decoder whose engine is gone raises."""
+    import gc
+    import weakref
+
+    _, tcfg = _cfgs()
+    adapter = get_adapter("dense")
+    progs = [ModelProgram.from_adapter(adapter, m, cfg=tcfg) for m in ("A", "B")]
+    store = ParamStore.from_models({m: adapter.init(tcfg, seed=i, device=CPU)
+                                    for i, m in enumerate(("A", "B"))})
+    reqs = lambda: [TD.DecodeRequest(m, np.arange(3, dtype=np.int32), max_new_tokens=2)  # noqa: E731
+                    for m in ("A", "B")]
+    gc.collect()
+    gc.disable()
+    try:
+        eng = MergeAwareEngine(store, instances_from_store(store, "tiny-yolo"), progs,
+                               capacity_bytes=10 ** 9,
+                               costs={"tiny-yolo": costs_for("tiny-yolo")}, simulate_dma=False)
+        eng.serve_decode(reqs(), **DECODE_KW)
+        first, dead_engine = weakref.ref(eng.last_decoder), weakref.ref(eng)
+        if drop == "decoder-replaced":
+            eng.serve_decode(reqs(), **DECODE_KW)
+            assert first() is None and eng.last_decoder.engine is eng
+        elif drop == "engine":
+            dec = eng.last_decoder
+            del eng
+            assert dead_engine() is None and first() is dec
+            with pytest.raises(ReferenceError):
+                dec.engine
+        else:
+            del eng
+            assert dead_engine() is None and first() is None
+    finally:
+        gc.enable()

@@ -473,7 +473,7 @@ def _split_edge_lengths(Smax):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [16, 64, 128])
 @pytest.mark.parametrize("G", [1, 2, 4, 8, 16])
 def test_decode_kernel_over_head_dims_groups_and_split_edges(cuda_device, dtype, D, G):
     Hkv, Smax = 2, 3 * kdecode.CHUNK + 7
@@ -1364,4 +1364,116 @@ def test_plan_wire_lane_on_the_card(cuda_device):
     assert derived["changed_keys"] > 0 and derived["unchanged_keys"] > 0, derived
     assert [r["lane"] for r in rows] == ["full", "delta", "delta_q8"]
     assert rows[2]["n_delta_q8"] == derived["changed_keys"], rows
+    assert ops.kernel_launches()["flash_attention"] > before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_kernels_at_head_dim_16_and_olmo_heads(cuda_device, dtype):
+    """flash_attention (causal and windowed) and decode_attention at the
+    tiny LM configs' head dim 16, and at olmo / olmoe's 16 heads of 128,
+    against their plain versions."""
+    rnd = _rnd(cuda_device, dtype, 40)
+    for B, S, Hq, Hkv, D, window in [(2, 70, 2, 2, 16, None), (3, 40, 4, 1, 16, 8),
+                                     (2, 128, 16, 16, 128, None)]:
+        q, k, v = rnd(B, S, Hq, D), rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
+        before = ops.kernel_launches()["flash_attention"]
+        out = ops.flash_attention(q, k, v, window=window)
+        assert ops.kernel_launches()["flash_attention"] == before + 1
+        assert kflash.route(q) == ("mma" if dtype == "bfloat16" else "simt")
+        torch.testing.assert_close(out.float(), tref.flash_attention_ref(
+            q, k, v, window=window).float(), **TOL[dtype])
+    for B, Smax, Hq, Hkv, D in [(3, 16, 2, 2, 16), (2, 300, 4, 2, 16), (8, 128, 16, 16, 128)]:
+        q, k, v = rnd(B, Hq, D), rnd(B, Smax, Hkv, D), rnd(B, Smax, Hkv, D)
+        lens = torch.tensor([Smax - 3 * b for b in range(B)][:-1] + [0], dtype=torch.int32,
+                            device=cuda_device)
+        out = ops.decode_attention(q, k, v, lens)
+        assert torch.equal(out[-1], torch.zeros_like(out[-1]))
+        torch.testing.assert_close(out.float(), tref.decode_attention_ref(
+            q, k, v, lens).float(), **TOL[dtype])
+
+
+def _moe_cfg(dtype):
+    from repro_torch.models.moe import MoELMConfig
+
+    return MoELMConfig(name="gpu-moe", n_layers=2, d_model=128, n_heads=4, n_kv_heads=4,
+                       head_dim=64, vocab_size=300, n_experts=8, top_k=2,
+                       d_ff_expert=64, group_size=64, qk_norm=True, dtype=dtype)
+
+
+@pytest.mark.gpu
+def test_moe_forward_on_the_card_matches_the_cpu(cuda_device):
+    """The moe trunk (flash attention at head dim 64, routed expert GEMMs
+    with float32 gate and up sums) on the card against the same params'
+    forward on the CPU, float32; the routing decisions equal."""
+    from repro_torch.models import moe
+    from repro_torch.utils.tree import flatten_paths, unflatten_paths
+
+    cfg = _moe_cfg("float32")
+    cpu = moe.init(cfg, seed=0, device="cpu")
+    card = unflatten_paths({p: t.to(cuda_device) for p, t in flatten_paths(cpu).items()})
+    toks = torch.randint(0, cfg.vocab_size, (2, 32), generator=torch.Generator().manual_seed(1))
+    before = ops.kernel_launches()["flash_attention"]
+    got, aux = moe.forward(cfg, card, toks.to(cuda_device))
+    want, aux_cpu = moe.forward(cfg, cpu, toks)
+    assert ops.kernel_launches()["flash_attention"] == before + cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, **TOL["float32"])
+    torch.testing.assert_close(aux.cpu(), aux_cpu, **TOL["float32"])
+    x = torch.randn((1, 64, cfg.d_model), generator=torch.Generator().manual_seed(2))
+    w = cpu["blocks"]["0"]["moe"]["router"]["w"]
+    d_cpu, _, _ = moe.route(cfg, w, x)
+    d_card, _, _ = moe.route(cfg, w.to(cuda_device), x.to(cuda_device))
+    assert torch.equal(d_card.cpu(), d_cpu)
+
+
+@pytest.mark.gpu
+def test_moe_paged_decode_step_on_the_card(cuda_device):
+    """One paged decode step of a bf16 moe (page_gather, decode_attention,
+    per-token routing) against its unpaged twin on the card, and the pool
+    written in place."""
+    import dataclasses
+
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(_moe_cfg("bfloat16"), group_size=1)
+    params = moe.init(cfg, seed=3, device=cuda_device)
+    page, maxp, B = 4, 3, 2
+    pool = moe.init_kv_pool(cfg, 8, page, device=cuda_device)
+    cache = moe.init_cache(cfg, B, page * maxp, device=cuda_device)
+    tables = torch.tensor([[0, 1, 2], [5, 6, 7]], dtype=torch.int32, device=cuda_device)
+    toks = torch.randint(0, cfg.vocab_size, (B, 5), device=cuda_device,
+                         generator=torch.Generator(device=cuda_device).manual_seed(4))
+    before = ops.kernel_launches()
+    for t in range(5):
+        lengths = torch.full((B,), t, dtype=torch.int32, device=cuda_device)
+        lp, new = moe.paged_decode_step(cfg, params, pool, tables, lengths, toks[:, t])
+        lu, cache = moe.decode_step(cfg, params, cache, toks[:, t:t + 1])
+        assert new["k"] is pool["k"]
+        torch.testing.assert_close(lp.float(), lu.float(), **TOL["bfloat16"])
+    after = ops.kernel_launches()
+    assert after["page_gather"] - before["page_gather"] == 2 * 5 * cfg.n_layers
+    assert after["decode_attention"] - before["decode_attention"] == 2 * 5 * cfg.n_layers
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bench", ["lm_merging", "decode_serve", "fig14_bandwidth"])
+def test_lm_bench_defaults_run_on_the_card(cuda_device, bench, tmp_path, monkeypatch):
+    """The LM benches at their defaults (the dense adapter's tiny config,
+    head dim 16) on the card: they run and meet their structural gates."""
+    import importlib
+
+    from repro_torch.bench import common
+
+    monkeypatch.setattr(common, "ARTIFACTS", str(tmp_path))
+    mod = importlib.import_module(f"repro_torch.bench.{bench}")
+    before = ops.kernel_launches()["flash_attention"]
+    if bench == "fig14_bandwidth":
+        out = mod.run_plan_wire(device=cuda_device)
+        assert out["derived"]["unchanged_bitwise"] and out["derived"]["quant_within_drift"]
+    elif bench == "decode_serve":  # its structural gates (smoke=True leaves out the timed one)
+        out = mod.run(device=cuda_device)
+        assert all(mod.gates(out["derived"], smoke=True).values()), out["derived"]
+    else:
+        out = mod.run(device=cuda_device)
+        assert all(mod.gates(out["derived"]).values()), out["derived"]
     assert ops.kernel_launches()["flash_attention"] > before

@@ -165,7 +165,7 @@ def test_bank_route_takes_simt_for_a_view_starting_mid_row():
     assert kbank.route(x.clone(), w) == "wgmma"
 
 
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [16, 64, 128, 256])
 @pytest.mark.parametrize("dtype,want", [("bfloat16", "mma"), ("float32", "simt")])
 @pytest.mark.parametrize("Hq", [1, 16])
 def test_flash_route_is_a_function_of_dtype_and_head_dim(D, dtype, want, Hq):
@@ -457,3 +457,27 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.delenv("CUDA_PATH", raising=False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.find_nvcc()
+
+
+def test_build_compiles_every_source_and_times_each(monkeypatch, tmp_path):
+    """``build`` starts one compiler a source, drains each one's report
+    while the others run, times each and links: here with a stand-in
+    compiler that writes its output file and a long report (more than a
+    pipe holds)."""
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\n"
+                    "out=''; prev=''\n"
+                    "for a in \"$@\"; do [ \"$prev\" = -o ] && out=$a; prev=$a; done\n"
+                    "head -c 200000 /dev/zero | tr '\\0' 'x'; echo\n"
+                    "echo 'ptxas info    : Used 8 registers'\n"
+                    ": > \"$out\"\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(fake))
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
+    monkeypatch.setattr(_build, "build_info", {})
+    lib = _build.build()
+    assert lib.is_file() and lib.parent.parent == tmp_path / "build"
+    names = {p.name for p in _build.sources()}
+    assert set(_build.build_info["source_seconds"]) == set(_build.build_info["ptxas"]) == names
+    assert all("Used 8 registers" in log for log in _build.build_info["ptxas"].values())
+    assert _build.build() == lib and _build.build_info["cached"]

@@ -350,15 +350,14 @@ def test_verify_bitwise_holds_the_bank_against_each_members_suffix(wrong_slots):
     through a faulty bank; the second check, each banked row against the
     member's own suffix over the batch (the JAX package's check), is exact
     on the CPU and catches the faulty bank."""
-    adapter, cfg, store, eng = _served_trio(wrong_slots)
+    _, _, store, eng = _served_trio(wrong_slots)
     gaps = []
-    bitwise, bank_gap = verify_bitwise(eng, store, adapter, cfg, buckets=TDA.BUCKETS,
-                                       gaps=gaps)
+    bitwise, bank_gap, bank_rel = verify_bitwise(eng, store, buckets=TDA.BUCKETS, gaps=gaps)
     assert bitwise and gaps == []
     if wrong_slots:
-        assert bank_gap > 1e-3
+        assert bank_gap > 1e-3 and bank_rel > 0.0
     else:
-        assert bank_gap == 0.0
+        assert bank_gap == bank_rel == 0.0
 
 
 # ---------------------------------------------------------------------------

@@ -24,6 +24,7 @@ The structural gates of ``scripts/ci.sh`` (S2 and D1) are asserted on the
 CPU runs; D1's replay is held at the stated 1e-5 instead of bitwise
 (torch's CPU GEMMs give a row other bits at another batch size).
 """
+import dataclasses
 import functools
 import pathlib
 import sys
@@ -113,14 +114,18 @@ def jax_planners():
 # ---------------------------------------------------------------------------
 
 
-def _lm_scenario() -> TLM.LMScenario:
+def _lm_scenario(bf16: bool = False) -> TLM.LMScenario:
     """The JAX LM bench's draws as a port scenario: the zoo, the
     calibration batch (PRNGKey(7)), the request tokens and the decode
-    prompts (``decode_serve``'s PRNGKey(1000 + 13 i + j))."""
+    prompts (``decode_serve``'s PRNGKey(1000 + 13 i + j)).  ``bf16``
+    draws the zoo at the tiny config in bfloat16 in both packages."""
     jadapter = jax_get_adapter("dense")
     jcfg = jadapter.default_config()
     adapter = get_adapter("dense")
     cfg = adapter.default_config()
+    if bf16:
+        jcfg = dataclasses.replace(jcfg, dtype=jnp.bfloat16)
+        cfg = dataclasses.replace(cfg, dtype="bfloat16")
     zoo = LM.lm_zoo(jadapter, jcfg)
     cal = jadapter.calibration_batch(jcfg, jax.random.PRNGKey(7), 32)
     payloads = [_np(r.payload) for r in LM.lm_requests(jcfg, LM.MIDS)]

@@ -8,6 +8,7 @@ Neither package writes an artifact here (both ``ARTIFACTS`` in
 ``tmp_path``).
 """
 import base64
+import dataclasses
 import pathlib
 import sys
 
@@ -102,8 +103,8 @@ def _reference_ramp(buf: np.ndarray, i: int) -> np.ndarray:
 
 def test_retrained_ramp_keeps_the_dtype_and_the_reference_bits():
     """float32: the reference's bits.  bf16: the reference keeps the sum in
-    float32 (numpy promotes bfloat16 + float32); the port's is that sum
-    rounded to bf16, and differs from it."""
+    float32 (numpy promotes bfloat16 + float32), and so does the port, bit
+    for bit."""
     rng = np.random.default_rng(1)
     v32 = rng.standard_normal((6, 5)).astype(np.float32)
     got = TF14.retrained(torch.from_numpy(v32), 3)
@@ -112,26 +113,87 @@ def test_retrained_ramp_keeps_the_dtype_and_the_reference_bits():
     want = _reference_ramp(vb, 3)
     assert want.dtype == np.float32
     gb = TF14.retrained(bridge.array_to_tensor(vb, CPU), 3)
-    assert gb.dtype == torch.bfloat16
-    assert np.array_equal(bridge.tensor_to_array(gb), want.astype(vb.dtype))
-    assert not np.array_equal(gb.float().numpy(), want)
+    assert gb.dtype == torch.float32
+    assert np.array_equal(gb.numpy(), want)
 
 
-@pytest.mark.parametrize("shape", [(1,), (2,), (3,), (16, 8), (7, 5)])
-def test_f32_sum_excess_equals_the_reference_entries(shape):
-    """chip_smoke's count of the bytes the reference's float32 sum adds to a
-    changed bf16 buffer's JSON entry, against both packages' encoders."""
+@pytest.fixture
+def recorded_plans(monkeypatch):
+    """Every plan JSON either package's ``MergePlan.to_json`` writes, in
+    order, and the JAX package's ``StagedPlanner`` on the port tests'
+    counting clock (plan JSON carries the planner's event times)."""
+    import repro.core as jax_core
+    from repro_torch.core import policy as TPOL
+    from test_torch_lm_bench import Ticks
+
+    out = {"jax": [], "torch": []}
+    for name, cls in (("jax", jax_core.MergePlan), ("torch", TPOL.MergePlan)):
+        def to_json(self, *a, _orig=cls.to_json, _log=out[name], **kw):
+            text = _orig(self, *a, **kw)
+            _log.append(text)
+            return text
+        monkeypatch.setattr(cls, "to_json", to_json)
+    planner = jax_core.StagedPlanner
+    monkeypatch.setattr(jax_core, "StagedPlanner",
+                        lambda *a, **kw: planner(*a, clock=Ticks(), **kw))
+    return out
+
+
+def test_plan_wire_at_bf16_equals_the_reference(monkeypatch, recorded_plans):
+    """The lane on the tiny config in bfloat16, on the JAX bench's draws.
+    The reference's ramp keeps float32 sums, so the changed buffers ship
+    as float32 ``full`` entries and the edge computes with them; the port
+    does the same.  Every plan JSON (v1 and the three re-exports) byte for
+    byte, rows, ratios and agreement equal."""
+    jadapter = jax_get_adapter("dense")
+    jcfg = dataclasses.replace(jadapter.default_config(), dtype=jnp.bfloat16)
+    monkeypatch.setattr(jadapter, "default_config", lambda: jcfg)
+    want = F14.run_plan_wire()
+    check = jadapter.calibration_batch(jcfg, jax.random.PRNGKey(33), 8)
+    batch = {k: torch.from_numpy(np.array(v)) for k, v in check.items()}
+    scn = _lm_scenario(bf16=True)
+    res, cloud = TF14.plan_variants(scn)
+    res.plan.to_json()  # the reference round-trips v1 through JSON
+    rows, derived, _ = TF14.plan_wire(scn, batch, planned=(res, cloud))
+    assert rows == want["rows"]
+    assert derived == want["derived"]
+    # v1 and the lanes' texts; the reference writes each lane twice, and
+    # delta and delta_q8 are one text (no changed entry is quantized)
+    jplans = list(dict.fromkeys(recorded_plans["jax"]))
+    assert list(dict.fromkeys(recorded_plans["torch"])) == jplans and len(jplans) == 3
+    kinds = {r["lane"]: (r["n_full"], r["n_same"]) for r in rows}
+    assert kinds == {"full": (19, 0), "delta": (17, 2), "delta_q8": (17, 2)}
+    assert 0.9 < derived["wire_ratio_delta"] == derived["wire_ratio_delta_q8"] < 1.0
+    assert set(derived["quant_agreement"].values()) == {1.0}
+    # the changed buffers reach the edge and the cloud in float32
+    changed = [k for k in sorted(cloud.shared_keys())
+               if k not in set(cloud.bindings["lm-C"].values())]
+    assert changed and all(cloud.buffers[k].dtype == torch.float32 for k in changed)
+
+
+
+@pytest.mark.parametrize("payloads,note", [
+    (["QUJD", "", "+/9="], "é \x01"),
+    (['a"b', "c\\d", "QUJD"], "é \x01"),
+    (["QUJD", "QUJE"], "model \x001, \\u00000"),
+], ids=["base64", "escaped", "mark-elsewhere"])
+def test_to_json_is_json_dumps_with_spliced_payloads(payloads, note):
+    """``MergePlan.to_json`` splices base64 payloads into the text; the
+    text is ``json.dumps``'s of the same object, a payload that needs
+    escaping going through the encoder, and a plan whose other strings
+    write the splice's mark (a NUL, or its escape spelled out) dumped
+    whole."""
     import json
 
-    import chip_smoke
+    from repro_torch.core.policy import MergePlan as TPlan
 
-    rng = np.random.default_rng(2)
-    base = np.asarray(jnp.asarray(rng.standard_normal(shape), dtype=jnp.bfloat16))
-    ref_entry = JSG.encode_weight_entry(_reference_ramp(base, 0), base=base, quantize=True)
-    port = TF14.retrained(bridge.array_to_tensor(base, CPU), 0)
-    port_entry = TSG.encode_weight_entry(port, base=bridge.array_to_tensor(base, CPU),
-                                         quantize=True)
-    assert (ref_entry["kind"], ref_entry["dtype"]) == ("full", "float32")
-    assert (port_entry["kind"], port_entry["dtype"]) == ("full", "bfloat16")
-    excess = len(json.dumps(ref_entry)) - len(json.dumps(port_entry))
-    assert excess == chip_smoke.f32_sum_excess_json_bytes(base.size)
+    weights = {f"shared:k{i}": {"dtype": "float32", "shape": [1], "kind": "full", "data": d}
+               for i, d in enumerate(payloads)}
+    weights["shared:same"] = {"dtype": "float32", "shape": [1], "kind": "same"}
+    plan = TPlan(1, (), {"note": note}, weights)
+    for indent in (None, 2):
+        text = plan.to_json(indent=indent)
+        assert text == json.dumps(json.loads(text), indent=indent)
+        assert json.loads(text)["shared_weights"] == weights
+        assert json.loads(text)["provenance"] == {"note": note}
+    assert TPlan.from_json(plan.to_json()).shared_weights == weights
