@@ -177,6 +177,28 @@ device memory still allocated and closes with its seconds):
    ``lm_bench_defaults`` runs ``python -m repro_torch.bench.<name>`` for
    lm_merging, decode_serve and fig14_bandwidth at their defaults (head
    dim 16), each holding its own gates;
+9e. the family call surface of all ten architectures
+   (``arch_families``): each of ``configs.registry.all_arch_ids()``
+   through ``get_family(FAMILY)`` at full width, bf16, depth cut where
+   ``ARCH_LAYERS`` says (qwen3-14b 4 of 40, qwen2-72b 2 of 80,
+   deepseek-moe-16b 3 of 28, olmoe-1b-7b 2 of 16, falcon-mamba-7b 8,
+   recurrentgemma-9b 6; the rest whole), each freed before the next: the
+   forward over 2 prompts of 128 tokens (internvl2-2b: 256 patch
+   embeddings + 64 text tokens; seamless-m4t-medium: 128 frames + 64
+   target tokens), the prefill, 8 greedy decode steps, each step's logits
+   and the prefill's held against the forward over the prompt and the
+   tokens so far (``ARCH_BF16_TOL``, 3e-2 of the row maximum, and on the
+   weights upcast in float32 ``ARCH_F32_TOL``, 1e-4; moe at capacity
+   factor 8.0 for this check, as the JAX package's, its bf16 check held
+   where its routing agrees with the forward's at the checked position,
+   its flipped decisions printed); weight bytes, forward / prefill /
+   per-step ms, launches by kernel.  Then three internvl2-2b and three
+   seamless-m4t-medium variants (``lm_zoo``'s recipe) with every trunk
+   column merged in one ``ParamStore`` (resident bytes before and after;
+   each member's accuracy from the store equal to that on its merged
+   tree), and ``bench.lm_merging.pod_sizing``'s rows (host, meta
+   tensors).  Gate: flash, decode, mamba_scan and rg_lru_scan launched;
+   the kernel checks of phase 3 include this phase's head layouts;
 10. joint retraining on the card (``small_cnn_retrain``):
    ``examples/quickstart.py``'s two pretrained small CNNs through
    ``IncrementalMerger`` with ``MergeTrainer``; each attempt's shared
@@ -657,6 +679,21 @@ def kernel_checks(torch) -> dict:
         check_flash(torch, "d16-window", 2, 256, 4, 1, 16, dtype, 8, 50, gen)
         check_decode(torch, "d16-tiny", 4, 16, 2, 2, 16, dtype, [16, 1, 9, 0], 200, gen)
     check_decode(torch, "olmoe-decode", 8, 128, 16, 16, 128, "bfloat16", ragged, 200, gen)
+    # the arch_families phase's head layouts (2 prompts of 128 tokens, 8
+    # decode steps): qwen3-14b's 40 query heads on 8 kv heads (a group of
+    # 5), qwen2-72b's 64 on 8 and its cache of 16 stored heads (kv_repl 2,
+    # a group of 4), internvl2-2b's 16 on 8 over 256 patches + 64 text
+    # tokens (+ 3 decoded: a partial key tile) and its cache of 16 on 16
+    check_flash(torch, "qwen3-trunk", 2, 128, 40, 8, 128, "bfloat16", None, 50, gen)
+    check_flash(torch, "qwen2-trunk", 2, 128, 64, 8, 128, "bfloat16", None, 50, gen)
+    check_flash(torch, "internvl2-ragged", 2, 256 + 64 + 3, 16, 8, 128, "bfloat16", None, 50,
+                gen)
+    check_decode(torch, "qwen3-decode-g5", 2, 136, 40, 8, 128, "bfloat16", [129, 136], 200,
+                 gen)
+    check_decode(torch, "qwen2-decode-kv_repl", 2, 136, 64, 16, 128, "bfloat16", [129, 136],
+                 200, gen)
+    check_decode(torch, "internvl2-decode-kv_repl", 2, 328, 16, 16, 128, "bfloat16",
+                 [321, 328], 200, gen)
     return main
 
 
@@ -2499,6 +2536,421 @@ def _small_cnn_retrain(torch) -> None:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 9e: the family call surface of all ten architectures at full width
+# ---------------------------------------------------------------------------
+
+# layers run of each architecture, widths whole (None: all of them);
+# falcon-mamba's and recurrentgemma's are phase 6's FAMILY_LAYERS
+ARCH_LAYERS = {
+    "stablelm-1.6b": None, "olmo-1b": None, "internvl2-2b": None,
+    "seamless-m4t-medium": None, "qwen3-14b": 4, "qwen2-72b": 2,
+    "deepseek-moe-16b": 3,  # the dense first layer and two moe layers
+    "olmoe-1b-7b": 2, "falcon-mamba-7b": FAMILY_LAYERS["falcon_mamba"],
+    "recurrentgemma-9b": FAMILY_LAYERS["recurrentgemma"],
+}
+ARCH_BATCH, ARCH_PROMPT, ARCH_NEW = 2, 128, 8
+VLM_TEXT = 64  # internvl2-2b: its 256 patch embeddings, then 64 text tokens
+ENCDEC_SRC, ENCDEC_TGT = 128, 64  # seamless-m4t-medium: source frames, target tokens
+# the decode-against-forward check's moe capacity factor: at 1.25 the same
+# token routes differently in a forward than in a prefill plus decode
+# (capacity competition, the moe family's semantics); the JAX package's own
+# check (tests/test_models.py) raises it to 8.0 for that reason
+ARCH_MOE_CAPACITY = 8.0
+# the check's bounds on the largest |difference| over the forward row's
+# largest magnitude, set from chip_arch_numerics.py's readings on an H100
+# (PERF.md): in float32 (the port's logic) they read at most 7.6e-6; in
+# bf16 up to 2.02% at 24 random layers, about as far as the bf16 forward
+# alone is from the float32 one, and up to 1.3% in the moe archs where
+# their routing agrees with the forward's
+ARCH_F32_TOL = 1e-4
+ARCH_BF16_TOL = 3e-2
+# kernels each family's forward, prefill and decode must launch
+ARCH_EXPECT = {"dense": ("flash_attention", "decode_attention"),
+               "moe": ("flash_attention", "decode_attention"),
+               "vlm": ("flash_attention", "decode_attention"),
+               "ssm": ("mamba_scan",), "hybrid": ("rg_lru_scan", "flash_attention"),
+               "encdec": ()}
+RECORDS_ONLY_VARIANTS = ("A", "B", "C")
+# the stub frontends' patch and frame embeddings at the scale of the
+# models' own token embeddings (the table's 0.02 N(0, 1)), the space a
+# projector maps them into.  At N(0, 1) internvl2-2b's bf16
+# decode-against-forward check reads 3.0-3.2% of the row maximum, with its
+# bf16 forward alone 3.1-3.6% off the float32 forward of the same weights
+# and the float32 check at 6.8e-6 (chip_arch_numerics.py): bf16 rounding
+# through 24 random layers, not the port
+FRONTEND_SCALE = 0.02
+
+
+def arch_config(arch: str):
+    """``arch``'s full config at ``ARCH_LAYERS`` depth (bf16, widths whole),
+    moe at ``ARCH_MOE_CAPACITY``, and the depth cut as text."""
+    from repro_torch.configs.registry import load_arch
+
+    mod = load_arch(arch)
+    full = mod.full_config()
+    n = ARCH_LAYERS[arch]
+    cfg = full if n is None else cut_depth(full, n)
+    if mod.FAMILY == "moe":
+        cfg = dataclasses.replace(cfg, capacity_factor=ARCH_MOE_CAPACITY)
+    if mod.FAMILY == "encdec":
+        cut = f"{cfg.n_enc_layers} + {cfg.n_dec_layers} of {full.n_enc_layers} + " \
+              f"{full.n_dec_layers} layers (whole)"
+    else:
+        cut = f"{cfg.n_layers} of {full.n_layers} layers" + (" (whole)" if n is None else "")
+    return mod.FAMILY, cfg, cut
+
+
+def arch_inputs(torch, family: str, cfg, seed: int) -> tuple:
+    """(tokens, extra) drawn with numpy and moved to the card: the prompt
+    (B, 128) of the token LMs, internvl2's 64 text tokens and (B, 256, d)
+    patch embeddings, seamless's 64 target tokens and (B, 128, d) frames,
+    the embeddings ``FRONTEND_SCALE`` N(0, 1)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n_tok = {"vlm": VLM_TEXT, "encdec": ENCDEC_TGT}.get(family, ARCH_PROMPT)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (ARCH_BATCH, n_tok))).cuda()
+    extra = None
+    if family in ("vlm", "encdec"):
+        n = cfg.n_patches if family == "vlm" else ENCDEC_SRC
+        extra = torch.from_numpy(FRONTEND_SCALE * rng.standard_normal(
+            (ARCH_BATCH, n, cfg.d_model), dtype=np.float32)).cuda()
+    return toks, extra
+
+
+def family_call(fam, family: str, name: str, cfg, params, toks, extra, *rest):
+    """``fam.<name>`` on the family's inputs: vlm takes (tokens, patches),
+    encdec (frames, tokens), the others tokens; moe's forward (logits,
+    aux) gives its logits."""
+    fn = getattr(fam, name)
+    if family == "vlm":
+        out = fn(cfg, params, toks, extra, *rest)
+    elif family == "encdec":
+        out = fn(cfg, params, extra, toks, *rest)
+    else:
+        out = fn(cfg, params, toks, *rest)
+    return out[0] if name == "forward" and family == "moe" else out
+
+
+def timed(torch, fn):
+    """(result, ms) of one call, synchronised on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+class RouteRecorder:
+    """Inside ``with``, records every moe routing decision: each
+    ``moe.route`` call appends the experts each of its tokens was
+    dispatched to, (tokens, E) bool, tokens in (row, position) order."""
+
+    def __init__(self):
+        self.calls: list = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self._route = route = moe.route
+
+        def recording(cfg, router_w, x):
+            out = route(cfg, router_w, x)
+            self.calls.append((out[0].sum(-1) > 0).reshape(-1, cfg.n_experts))
+            return out
+
+        moe.route = recording
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.route = self._route
+
+    def per_layer(self, batch: int, n_layers: int):
+        """The decisions as (n_layers, batch, positions, E): the calls in
+        layer order, call after call (a prefill, then each decode step),
+        each call's tokens concatenated along the positions."""
+        import torch
+
+        layers = [self.calls[i::n_layers] for i in range(n_layers)]
+        return torch.stack([torch.cat([c.reshape(batch, -1, c.shape[-1]) for c in cs], 1)
+                            for cs in layers])
+
+
+def moe_layers(family: str, cfg) -> int:
+    return cfg.n_layers - cfg.first_dense_layers if family == "moe" else 0
+
+
+def greedy_decode(torch, fam, family: str, cfg, params, toks, extra, max_len: int) -> dict:
+    """Prefill of the prompt ``toks``, then ``ARCH_NEW`` greedy decode
+    steps, each call timed: rows (the prefill's last logits, then each
+    step's, float32), toks (prompt and generated tokens), prefill_ms,
+    step_ms, length (the cache's), and for a moe family routes (its
+    decisions at every position, ``RouteRecorder.per_layer``)."""
+    rec = RouteRecorder()
+    with rec:
+        (logits, cache), prefill_ms = timed(torch, lambda: family_call(
+            fam, family, "prefill", cfg, params, toks, extra, max_len))
+        rows = [logits[:, -1].float()]
+        step_ms = []
+        for _ in range(ARCH_NEW):
+            nxt = rows[-1][:, :cfg.vocab_size].argmax(-1, keepdim=True).to(toks.dtype)
+            toks = torch.cat([toks, nxt], dim=1)
+            (logits, cache), ms = timed(torch, lambda: fam.decode_step(cfg, params, cache, nxt))
+            rows.append(logits[:, -1].float())
+            step_ms.append(ms)
+    out = dict(rows=rows, toks=toks, prefill_ms=prefill_ms, step_ms=step_ms,
+               length=int(cache["length"]))
+    if moe_layers(family, cfg):
+        out["routes"] = rec.per_layer(toks.shape[0], moe_layers(family, cfg))
+    return out
+
+
+def against_forward(torch, fam, family: str, cfg, params, toks, extra, rows: list,
+                    routes=None) -> dict:
+    """Each of ``rows`` (the prefill's last logits, then each decode
+    step's) against the forward over the prompt and the tokens so far
+    (``toks`` holds them all) at its last position, both divided by the
+    forward row's largest magnitude.  Returns, per (row of ``rows``, batch
+    row), ``err`` (the largest |difference| over the row maximum) and
+    ``agree`` (argmax agreement); given the decode's moe ``routes``, also
+    ``flipped_here`` (a routing decision at the checked position differs
+    from the forward's, at any layer), ``flipped_before`` (one at an
+    earlier position does) and ``flipped_decisions`` (the (layer, row,
+    position) decisions that differ, over the last forward, which covers
+    every position)."""
+    err, agree, here, before, flipped = [], [], [], [], 0
+    for i, got in enumerate(rows):
+        n = toks.shape[1] - ARCH_NEW + i
+        rec = RouteRecorder()
+        with rec:
+            want = family_call(fam, family, "forward", cfg, params, toks[:, :n], extra)
+        want = want[:, -1].float()
+        scale = want.abs().amax(-1, keepdim=True)
+        err.append(((got - want).abs() / scale).amax(-1))
+        agree.append(got[:, :cfg.vocab_size].argmax(-1) == want[:, :cfg.vocab_size].argmax(-1))
+        if routes is not None:
+            fwd = rec.per_layer(toks.shape[0], routes.shape[0])
+            diff = (fwd[:, :, :n] != routes[:, :, :n]).any(-1).any(0)  # (B, n)
+            here.append(diff[:, -1])
+            before.append(diff[:, :-1].any(-1))
+            flipped = int(diff.sum())
+    out = dict(err=torch.stack(err).cpu(), agree=torch.stack(agree).cpu())
+    if routes is not None:
+        out.update(flipped_here=torch.stack(here).cpu(), flipped_before=torch.stack(before).cpu(),
+                   flipped_decisions=flipped, decisions=routes.shape[0] * routes.shape[1]
+                   * routes.shape[2])
+    return out
+
+
+def upcast(cfg, params) -> tuple:
+    """(cfg, params) in float32: the same weights, upcast."""
+    from repro_torch.utils.tree import flatten_paths, unflatten_paths
+
+    return (dataclasses.replace(cfg, dtype="float32"),
+            unflatten_paths({k: v.float() for k, v in flatten_paths(params).items()}))
+
+
+def float32_check(torch, fam, family: str, cfg, params, toks, extra, max_len: int) -> dict:
+    """The decode-against-forward check on the same weights upcast to
+    float32, fed ``toks``' tokens (teacher-forced: the prefill over the
+    prompt, then one step a token): the port's prefill and decode logic
+    free of bf16 rounding (``against_forward``'s result).  Its kernel
+    launches (float32 routes) are a check's, not the main path's."""
+    c32, p32 = upcast(cfg, params)
+    n_prompt = toks.shape[1] - ARCH_NEW
+    rec = RouteRecorder()
+    with rec:
+        logits, cache = family_call(fam, family, "prefill", c32, p32, toks[:, :n_prompt],
+                                    extra, max_len)
+        rows = [logits[:, -1].float()]
+        for i in range(ARCH_NEW):
+            logits, cache = fam.decode_step(c32, p32, cache,
+                                            toks[:, n_prompt + i:n_prompt + i + 1])
+            rows.append(logits[:, -1].float())
+    n_moe = moe_layers(family, cfg)
+    return against_forward(torch, fam, family, c32, p32, toks, extra, rows,
+                           rec.per_layer(toks.shape[0], n_moe) if n_moe else None)
+
+
+def arch_run(torch, arch: str, seed: int) -> dict:
+    """One architecture through ``get_family(FAMILY)``: forward over the
+    prompt, prefill (max_len = prompt + 8), 8 greedy decode steps (each
+    timed), each step's logits and the prefill's held against the forward
+    (``against_forward``) within ``ARCH_BF16_TOL``, and the same check in
+    float32 within ``ARCH_F32_TOL`` (``float32_check``).  A moe
+    architecture's bf16 check is held only where its routing agrees with
+    the forward's at the checked position (``flipped_here``): rounding
+    flips a top-k decision there, a discrete change as capacity
+    competition is; its flips are printed.  Kernel launches are counted
+    over the bf16 forward, prefill and steps.  The row is printed before
+    its gates are checked."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import get_family
+    from repro_torch.utils.tree import flatten_paths
+
+    family, cfg, cut = arch_config(arch)
+    fam = get_family(family)
+    params = fam.init(cfg, seed, "cuda")
+    weight_bytes = sum(nbytes(t) for t in flatten_paths(params).values())
+    toks, extra = arch_inputs(torch, family, cfg, seed)
+    offset = cfg.n_patches if family == "vlm" else 0  # positions before the text
+    max_len = offset + toks.shape[1] + ARCH_NEW
+    with torch.no_grad():
+        # warm-ups: a first call pays for lazily loaded library kernels
+        family_call(fam, family, "forward", cfg, params, toks, extra)
+        family_call(fam, family, "prefill", cfg, params, toks, extra, max_len)
+        ops.reset_kernel_launches()
+        _, forward_ms = timed(torch, lambda: family_call(fam, family, "forward", cfg, params,
+                                                         toks, extra))
+        run = greedy_decode(torch, fam, family, cfg, params, toks, extra, max_len)
+        launches, routes = ops.kernel_launches(), ops.route_launches()
+        toks = run["toks"]
+        chk = against_forward(torch, fam, family, cfg, params, toks, extra, run["rows"],
+                              run.get("routes"))
+        chk32 = float32_check(torch, fam, family, cfg, params, toks, extra, max_len)
+    held = ~chk["flipped_here"] if family == "moe" else torch.ones_like(chk["agree"])
+    worst_held = float(chk["err"][held].max()) if held.any() else None
+    row = dict(arch=arch, family=family, depth_cut=cut, dtype=cfg.dtype, d_model=cfg.d_model,
+               weight_bytes=weight_bytes, batch=ARCH_BATCH,
+               tokens=dict(prompt=toks.shape[1] - ARCH_NEW, new=ARCH_NEW,
+                           prefix=offset or (ENCDEC_SRC if family == "encdec" else 0)),
+               max_len=max_len, forward_ms=forward_ms, prefill_ms=run["prefill_ms"],
+               decode_step_ms=sum(run["step_ms"]) / ARCH_NEW, decode_step_ms_each=run["step_ms"],
+               checked_positions=len(run["rows"]),
+               max_abs_err_over_row_max=float(chk["err"].max()),
+               held_positions=int(held.sum()), held_max_abs_err_over_row_max=worst_held,
+               tol=ARCH_BF16_TOL, argmax_agreement=float(chk["agree"].float().mean()),
+               float32_max_abs_err_over_row_max=float(chk32["err"].max()),
+               float32_tol=ARCH_F32_TOL,
+               launches={k: v for k, v in launches.items() if v},
+               route_launches={k: {r: n for r, n in v.items() if n}
+                               for k, v in routes.items() if any(v.values())})
+    if family == "moe":
+        row["capacity_factor"] = dict(run=ARCH_MOE_CAPACITY, published=1.25,
+                                      why="decode-against-forward check, as tests/test_models.py")
+        row["routing"] = dict(
+            decisions=chk["decisions"], flipped_decisions=chk["flipped_decisions"],
+            flipped_at_checked_position=int(chk["flipped_here"].sum()),
+            flipped_before_checked_position=int(chk["flipped_before"].sum()),
+            err_where_flipped=[round(float(e), 6) for e in chk["err"][chk["flipped_here"]]],
+            float32_flipped_decisions=chk32["flipped_decisions"])
+    if hasattr(cfg, "kv_repl"):
+        row["kv_repl"] = cfg.kv_repl
+    emit("arch_family", **row)
+    assert run["length"] == max_len, (arch, run["length"], max_len)
+    for name in ARCH_EXPECT[family]:
+        assert launches[name] > 0, (arch, name, launches)
+    assert worst_held is not None, (arch, "no checked position to hold")
+    assert worst_held <= ARCH_BF16_TOL, (arch, worst_held)
+    assert float(chk32["err"].max()) <= ARCH_F32_TOL, (arch, row["float32_max_abs_err_over_row_max"])
+    return row
+
+
+def records_only_merge(torch) -> dict:
+    """Three internvl2-2b and three seamless-m4t-medium variants at full
+    width (``lm_zoo``'s recipe: trunk + 0.005 N(0, 1), heads + 1.0), every
+    trunk column of the six merged in one ``ParamStore`` through the
+    adapters' ``records`` and ``enumerate_groups``.  Gate: for every member,
+    ``adapter.accuracy`` on the store's tensors equals (bitwise) the
+    accuracy on its merged tree built directly from the zoo (each shared
+    column's donor tensor in place of the member's own)."""
+    from repro_torch.bench.lm_merging import is_head
+    from repro_torch.core import ParamStore, enumerate_groups
+    from repro_torch.models.registry import get_adapter
+    from repro_torch.utils.tree import flatten_paths, unflatten_paths
+
+    members, zoo = {}, {}
+    for arch in ("internvl2-2b", "seamless-m4t-medium"):
+        family, cfg, _ = arch_config(arch)
+        adapter = get_adapter(family)
+        mids = tuple(f"{arch}@{v}" for v in RECORDS_ONLY_VARIANTS)
+        for mid, params in lm_zoo(torch, adapter, cfg, mids=mids).items():
+            members[mid] = (adapter, cfg)
+            zoo[mid] = params
+    store = ParamStore.from_models(zoo)
+    unmerged = store.resident_bytes()
+    recs = [r for m, (a, cfg) in members.items() for r in a.records(cfg, zoo[m], m)
+            if not is_head(r.path)]
+    groups = enumerate_groups(recs)
+    flat = {m: flatten_paths(p) for m, p in zoo.items()}
+    merged_trees = {m: dict(f) for m, f in flat.items()}
+    shared = 0
+    for g in groups:
+        shared += len(store.merge_group(g))
+        for col in g.columns():
+            if len(col) >= 2:
+                for r in col:
+                    merged_trees[r.model_id][r.path] = flat[col[0].model_id][col[0].path]
+    merged = store.resident_bytes()
+    accuracy = {}
+    for m, (adapter, cfg) in members.items():
+        family = adapter.name
+        toks, extra = arch_inputs(torch, family, cfg, seed=7)
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        batch["patch_embeds" if family == "vlm" else "src_embeds"] = extra
+        with torch.no_grad():
+            a_store = float(adapter.accuracy(cfg, store.materialize(m), batch))
+            a_tree = float(adapter.accuracy(cfg, unflatten_paths(merged_trees[m]), batch))
+        assert a_store == a_tree, (m, a_store, a_tree)
+        accuracy[m] = a_store
+    cross = [g for g in groups if len({r.model_id.split("@")[0] for r in g.records}) > 1]
+    return dict(members=list(members), groups=len(groups), shared_keys=shared,
+                cross_arch_groups=len(cross), resident_bytes_unmerged=unmerged,
+                resident_bytes_merged=merged, saved_bytes=unmerged - merged,
+                accuracy_store_equals_merged_tree=True, accuracy=accuracy)
+
+
+def arch_families_phase(torch) -> tuple:
+    """Every architecture of ``configs.registry`` through the family call
+    surface at full width (``arch_run``, depth ``ARCH_LAYERS``), each freed
+    before the next; then the records-only families' merge
+    (``records_only_merge``) and ``bench.lm_merging.pod_sizing``'s rows
+    (host, meta tensors).  Returns (kernel launches, routes) summed over
+    the ten runs."""
+    from repro_torch.bench.lm_merging import pod_sizing
+    from repro_torch.configs.registry import all_arch_ids
+
+    t_phase = start_phase(torch, "arch_families")
+    launches = collections.Counter()
+    routes = collections.defaultdict(collections.Counter)
+    runs = {}
+    for i, arch in enumerate(all_arch_ids()):
+        row = arch_run(torch, arch, seed=i)
+        launches.update(row["launches"])
+        for k, v in row["route_launches"].items():
+            routes[k].update(v)
+        runs[arch] = {k: row[k] for k in ("forward_ms", "prefill_ms", "decode_step_ms",
+                                          "max_abs_err_over_row_max",
+                                          "held_max_abs_err_over_row_max",
+                                          "float32_max_abs_err_over_row_max",
+                                          "argmax_agreement")}
+        gc.collect()
+        torch.cuda.empty_cache()
+    for name in ("flash_attention", "decode_attention", "mamba_scan", "rg_lru_scan"):
+        assert launches[name] > 0, (name, launches)
+    t0 = time.perf_counter()
+    merge = records_only_merge(torch)
+    emit("arch_families_records_merge", **merge, seconds=time.perf_counter() - t0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rows = pod_sizing()
+    emit("arch_families_pod_sizing", rows=rows, seconds=time.perf_counter() - t0)
+    emit("phase_end", name="arch_families", archs=runs, launches=dict(launches),
+         seconds=time.perf_counter() - t_phase)
+    return dict(launches), {k: dict(v) for k, v in routes.items()}
+
+
+def full_precision_matmuls(torch) -> None:
+    """float32 matmuls without TF32, bf16 ones with float32 reductions."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
 def main() -> int:
     import torch
 
@@ -2509,9 +2961,7 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.kernels import _build, ops
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    full_precision_matmuls(torch)
 
     global EXP_PER_S
     smi = nvidia_smi_line()
@@ -2620,6 +3070,7 @@ def main() -> int:
     add(*stablelm_plan_wire_phase(torch, stablelm_1_6b.full_config()))
     add(*mixed_zoo_phase(torch))
     add(*mixed_zoo_full_phase(torch))
+    add(*arch_families_phase(torch))
     t0 = start_phase(torch, "small_cnn_retrain")
     small_cnn_retrain_phase(torch)
     emit("phase_end", name="small_cnn_retrain", seconds=time.perf_counter() - t0)

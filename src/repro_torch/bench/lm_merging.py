@@ -1,5 +1,5 @@
-"""GEMEL merging applied to an LM zoo: merge-and-serve (the port of
-``benchmarks/lm_merging.py``).
+"""GEMEL merging applied to an LM zoo: pod sizing and merge-and-serve (the
+port of ``benchmarks/lm_merging.py``).
 
     PYTHONPATH=src python -m repro_torch.bench.lm_merging [--device cuda|cpu] [--retrain]
 
@@ -33,13 +33,19 @@ the CPU: on the card the Hopper kernels have no backward and refuse a call
 autograd would record (``ops.require_no_grad``), as the JAX package cannot
 retrain an LM through its Pallas kernels.
 
-The reference's pod-sizing half (``pod_sizing``: descriptor-scale savings of
-a multi-architecture pod) needs the remaining architecture configs and is
-not ported yet.
+:func:`pod_sizing` sizes a pod of fine-tuned variants of the assigned
+architectures from their full configs' ``meta`` parameter trees (nothing is
+allocated): the memory an Optimal and a GEMEL-capped merge save, and the
+signature overlap of six architecture pairs (``lm_merging.json``).  The
+JAX bench builds those trees in its stacked layout (``scan_layers=True``:
+one record per stack of blocks), so its per-model cap of 12 leaves counts
+stacked leaves; :func:`stacked_records_tree` folds the port's per-layer
+meta leaves into that layout for the records alone.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import time
 from typing import Any, Callable
@@ -48,9 +54,12 @@ import numpy as np
 import torch
 
 from repro_torch.bench.common import check_gates, emit
+from repro_torch.configs.registry import all_arch_ids, load_arch
 from repro_torch.core import MergePlan, ParamStore, RepresentationSimilarityScorer, StagedPlanner
+from repro_torch.core.groups import LayerGroup, enumerate_groups, potential_savings
 from repro_torch.core.merging import MergeTrainer
 from repro_torch.core.policy import CoherenceSurrogateTrainer, calibration_activations
+from repro_torch.core.signatures import signature_match_fraction
 from repro_torch.models.registry import get_adapter
 from repro_torch.serving.costs import costs_for
 from repro_torch.serving.executor import MergeAwareEngine, ModelProgram, Request
@@ -58,11 +67,92 @@ from repro_torch.serving.workload import deadline_microbatches, instances_from_s
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import flatten_paths, unflatten_paths
 
+# a pod workload: fine-tuned variants per arch (the paper's per-feed models
+# of one architecture; here one architecture, different domains)
+POD_WORKLOAD = {
+    "qwen3-14b": 3,
+    "olmo-1b": 4,
+    "olmoe-1b-7b": 2,
+    "falcon-mamba-7b": 2,
+    "stablelm-1.6b": 3,
+}
+# the GEMEL-capped merge's per-model budget of shared (stacked) leaves
+POD_CAP = 12
+# the layer stacks the JAX bench's full configs keep as one (L, ...) leaf
+STACKED = ("blocks", "repeats", "enc_blocks", "dec_blocks")
+CROSS_ARCH_PAIRS = (("olmo-1b", "olmoe-1b-7b"), ("qwen2-72b", "qwen3-14b"),
+                    ("stablelm-1.6b", "olmo-1b"), ("internvl2-2b", "olmo-1b"),
+                    ("deepseek-moe-16b", "olmoe-1b-7b"),
+                    ("recurrentgemma-9b", "falcon-mamba-7b"))
+
 MIN_SIMILARITY = 0.7
 MIDS = ("lm-A", "lm-B", "lm-C", "lm-D", "lm-E")  # C is the foreign init
 BUCKETS = (1, 2, 4)
 REQS_PER_MODEL = 8
 PROMPT_TOKENS = 8
+
+
+def stacked_records_tree(params: dict) -> dict:
+    """``params`` with each per-layer stack of :data:`STACKED`
+    (``blocks/<i>/...``) folded into one leaf per path of shape (L, ...),
+    the layout the JAX bench's records see.  For ``meta`` trees
+    ``torch.stack`` allocates nothing; the port never stacks weights."""
+    out = dict(params)
+    for key in STACKED:
+        if key not in params:
+            continue
+        layers = [flatten_paths(params[key][str(i)]) for i in range(len(params[key]))]
+        out[key] = unflatten_paths({p: torch.stack([f[p] for f in layers])
+                                    for p in layers[0]})
+    return out
+
+
+def _records_for(arch: str, variant: int) -> list:
+    mod = load_arch(arch)
+    cfg = mod.full_config()
+    adapter = get_adapter(mod.FAMILY)
+    return adapter.records(cfg, stacked_records_tree(adapter.eval_params(cfg)),
+                           f"{arch}@{variant}")
+
+
+def pod_sizing() -> list:
+    """The pod workload's savings at Optimal and under GEMEL's memory-forward
+    cap, then the cross-architecture signature overlap (the LM Fig 4)."""
+    recs = []
+    for arch, n in POD_WORKLOAD.items():
+        for v in range(n):
+            recs.extend(_records_for(arch, v))
+    pot = potential_savings(recs)
+    total = pot["total_bytes"]
+    shared = collections.Counter()
+    saved = committed = 0
+    for g in enumerate_groups(recs):
+        active = [r for col in g.columns() if len(col) >= 2 for r in col]
+        if len(active) < 2:
+            continue
+        counts = collections.Counter(r.model_id for r in active)
+        if any(shared[m] + c > POD_CAP for m, c in counts.items()):
+            continue
+        shared.update(counts)
+        saved += LayerGroup(g.signature, active).savings
+        committed += 1
+    rows = [{
+        "analysis": "pod_workload",
+        "models": sum(POD_WORKLOAD.values()),
+        "total_gb": total / 1e9,
+        "optimal_saved_pct": 100 * pot["fraction_saved"],
+        "gemel_saved_pct": 100 * saved / total,
+        "groups_committed": committed,
+    }]
+    arch_recs = {a: _records_for(a, 0) for a in all_arch_ids()}
+    for a, b in CROSS_ARCH_PAIRS:
+        frac = signature_match_fraction(arch_recs[a], arch_recs[b])
+        rows.append({
+            "analysis": "cross-arch", "models": 2, "total_gb": "",
+            "optimal_saved_pct": "", "gemel_saved_pct": "",
+            "groups_committed": f"{a}|{b}: {100*frac:.1f}% identical",
+        })
+    return rows
 
 
 def _perturb(params, seed, scale, select=None):
@@ -427,6 +517,10 @@ def timed_gates(d: dict) -> dict:
 
 
 def run(scn: LMScenario = None, device=None, retrain: bool = False) -> dict:
+    emit("lm_merging", pod_sizing(), {
+        "note": "fine-tuned variants of one arch share 100% of signatures; "
+                "cross-arch overlap mirrors the paper's same/cross-family split",
+    })
     scn = numpy_scenario(device=device) if scn is None else scn
     rows, derived = merge_and_serve(scn, retrain=retrain)
     return emit("BENCH_lm_serve", rows, derived)

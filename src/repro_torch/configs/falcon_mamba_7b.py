@@ -3,6 +3,7 @@
 ``repro.configs.falcon_mamba_7b``; blocks are per layer (``blocks/<i>/...``).
 The JAX config's scan ``chunk`` is a tiling knob of its Pallas kernel; the
 port's scan takes any sequence length and has none."""
+from repro_torch.configs.base import LM_SHAPES
 from repro_torch.models.ssm import MambaConfig
 
 ARCH_ID = "falcon-mamba-7b"
@@ -22,3 +23,7 @@ def smoke_config() -> MambaConfig:
         name=ARCH_ID + "-smoke", n_layers=2, d_model=64, d_inner=128,
         d_state=8, dt_rank=4, vocab_size=512, dtype="float32",
     )
+
+
+SHAPES = dict(LM_SHAPES)
+SKIP: dict = {}  # attention-free: O(1)-state decode, long_500k runs

@@ -1,6 +1,7 @@
 """olmo-1b [dense] — non-parametric LayerNorm, tied embeddings.
 [arXiv:2402.00838]  Same widths as
 ``repro.configs.olmo_1b``; blocks are per layer (``blocks/<i>/...``)."""
+from repro_torch.configs.base import FULL_ATTENTION_SKIP, LM_SHAPES
 from repro_torch.models.transformer import DenseLMConfig
 
 ARCH_ID = "olmo-1b"
@@ -21,3 +22,7 @@ def smoke_config() -> DenseLMConfig:
         n_kv_heads=4, head_dim=16, d_ff=128, vocab_size=512,
         norm="nonparam_ln", tie_embeddings=True, dtype="float32",
     )
+
+
+SHAPES = dict(LM_SHAPES)
+SKIP = {"long_500k": FULL_ATTENTION_SKIP}

@@ -1,6 +1,7 @@
 """olmoe-1b-7b [moe] — 64 routed experts, top-8, qk-norm.
 [arXiv:2409.02060]  Same widths as
 ``repro.configs.olmoe_1b_7b``; blocks are per layer (``blocks/<i>/...``)."""
+from repro_torch.configs.base import FULL_ATTENTION_SKIP, LM_SHAPES
 from repro_torch.models.moe import MoELMConfig
 
 ARCH_ID = "olmoe-1b-7b"
@@ -24,3 +25,7 @@ def smoke_config() -> MoELMConfig:
         n_experts=8, top_k=2, d_ff_expert=32, group_size=64, qk_norm=True,
         dtype="float32",
     )
+
+
+SHAPES = dict(LM_SHAPES)
+SKIP = {"long_500k": FULL_ATTENTION_SKIP}

@@ -7,6 +7,7 @@ hf:google/recurrentgemma-9b; unverified]  Same widths as
 ``repro.configs.recurrentgemma_9b``; layers are per repeat
 (``repeats/<r>/<i>_<kind>/...``).
 """
+from repro_torch.configs.base import LM_SHAPES
 from repro_torch.models.griffin import GriffinConfig
 
 ARCH_ID = "recurrentgemma-9b"
@@ -31,3 +32,7 @@ def smoke_config() -> GriffinConfig:
         d_model=64, d_rnn=64, n_heads=4, n_kv_heads=1, head_dim=16,
         d_ff=128, vocab_size=512, window=16, dtype="float32",
     )
+
+
+SHAPES = dict(LM_SHAPES)
+SKIP: dict = {}  # sub-quadratic (window 2048 + O(1) recurrent state): all run

@@ -1,6 +1,7 @@
 """stablelm-1.6b [dense] — MHA, partial rotary (25%), LayerNorm.
 [hf:stabilityai/stablelm-2-1_6b; unverified]  Same widths as
 ``repro.configs.stablelm_1_6b``; blocks are per layer (``blocks/<i>/...``)."""
+from repro_torch.configs.base import FULL_ATTENTION_SKIP, LM_SHAPES
 from repro_torch.models.transformer import DenseLMConfig
 
 ARCH_ID = "stablelm-1.6b"
@@ -21,3 +22,7 @@ def smoke_config() -> DenseLMConfig:
         n_kv_heads=4, head_dim=16, d_ff=128, vocab_size=512,
         rotary_pct=0.25, norm="layernorm", dtype="float32",
     )
+
+
+SHAPES = dict(LM_SHAPES)
+SKIP = {"long_500k": FULL_ATTENTION_SKIP}

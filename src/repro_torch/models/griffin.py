@@ -219,17 +219,27 @@ def _recurrent_mixer(cfg: GriffinConfig, p: dict, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _attn_full(cfg: GriffinConfig, p: dict, x: torch.Tensor,
-               positions: torch.Tensor) -> torch.Tensor:
-    """Sliding-window MQA over positions 0..S-1 through
-    ``ops.flash_attention(window=cfg.window)``."""
+# the query block of the blocked attention over explicit positions (the
+# JAX package's griffin._attn_full)
+ATTN_BLOCK_Q = 1024
+
+
+def _attn_full(cfg: GriffinConfig, p: dict, x: torch.Tensor, positions: torch.Tensor,
+               std_positions: bool = True) -> torch.Tensor:
+    """Sliding-window MQA.  Over positions 0..S-1 (``std_positions``)
+    through ``ops.flash_attention(window=cfg.window)``; other positions
+    through ``layers.blocked_causal_attention``, as in the JAX package."""
     B, S, _ = x.shape
     Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = L.apply_rope(L.dense(x, p["wq"]).reshape(B, S, Hq, D), positions, cfg.rope_theta, D)
     k = L.apply_rope(L.dense(x, p["wk"]).reshape(B, S, Hkv, D), positions, cfg.rope_theta, D)
     v = L.dense(x, p["wv"]).reshape(B, S, Hkv, D)
-    attn = kops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                                causal=True, window=cfg.window)
+    if std_positions:
+        attn = kops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                    causal=True, window=cfg.window)
+    else:
+        attn = L.blocked_causal_attention(q, k, v, positions, window=cfg.window,
+                                          block_q=ATTN_BLOCK_Q)
     return L.dense(attn.reshape(B, S, -1), p["wo"])
 
 
@@ -273,14 +283,14 @@ def _attn_decode(cfg: GriffinConfig, p: dict, cache_l: dict, x: torch.Tensor,
 
 def _layer(cfg: GriffinConfig, kind: str, p: dict, x: torch.Tensor,
            positions: torch.Tensor, taps: Optional[dict] = None,
-           tap_path: str = "") -> torch.Tensor:
+           tap_path: str = "", std_positions: bool = True) -> torch.Tensor:
     h = L.apply_norm(cfg.norm, x, p.get("ln1", {}))
     if taps is not None:
         taps[tap_path + "/ln1"] = h
     if kind == "rec":
         y, _ = _recurrent_mixer(cfg, p["rec"], h, taps=taps, tap_path=tap_path + "/rec")
     else:
-        y = _attn_full(cfg, p["attn"], h, positions)
+        y = _attn_full(cfg, p["attn"], h, positions, std_positions)
         if taps is not None:
             taps[tap_path + "/attn"] = y
     x = x + y
@@ -306,14 +316,12 @@ def trunk(cfg: GriffinConfig, params: dict, tokens: torch.Tensor,
           taps: Optional[dict] = None) -> torch.Tensor:
     """Embedding (scaled by sqrt(d_model), as gemma does) + griffin repeats —
     the mergeable *prefix*.  Returns pre-final-norm hidden states (B, S, d).
-    Only the standard positions 0..S-1 are served: packed or offset
-    positions need the masked blocked attention, which is not ported."""
-    if positions is not None:
-        raise NotImplementedError(
-            "griffin.trunk: explicit positions need blocked_causal_attention, which the "
-            "port does not have yet; only positions 0..S-1 run through the flash kernel")
-    B, S = tokens.shape
-    positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
+    ``positions`` (B, S), when given (packed or offset sequences), take the
+    blocked attention (see :func:`_attn_full`)."""
+    std = positions is None
+    if std:
+        B, S = tokens.shape
+        positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
     x = _embed(cfg, params, tokens)
     if taps is not None:
         taps["embed"] = x
@@ -321,7 +329,7 @@ def trunk(cfg: GriffinConfig, params: dict, tokens: torch.Tensor,
         rep = params["repeats"][str(r)]
         for i, kind in enumerate(cfg.pattern):
             x = _layer(cfg, kind, rep[f"{i}_{kind}"], x, positions, taps=taps,
-                       tap_path=f"repeats/{r}/{i}_{kind}")
+                       tap_path=f"repeats/{r}/{i}_{kind}", std_positions=std)
     return x
 
 
@@ -346,10 +354,11 @@ def head(cfg: GriffinConfig, params: dict, x: torch.Tensor,
     return logits
 
 
-def forward(cfg: GriffinConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+def forward(cfg: GriffinConfig, params: dict, tokens: torch.Tensor,
+            positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, padded_vocab) float32, composed as
     ``head(trunk(x))`` so the serving split is bitwise identical to it."""
-    return head(cfg, params, trunk(cfg, params, tokens))
+    return head(cfg, params, trunk(cfg, params, tokens, positions))
 
 
 def loss_fn(cfg: GriffinConfig, params: dict, batch: dict) -> torch.Tensor:

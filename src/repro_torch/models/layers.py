@@ -131,7 +131,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 
 
 # ---------------------------------------------------------------------------
-# Attention (plain version, for multi-token decode steps against a cache)
+# Attention (plain versions: multi-token decode steps against a cache,
+# explicit positions, a prefill over explicit positions)
 # ---------------------------------------------------------------------------
 
 
@@ -173,6 +174,31 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs.float(), v.float())
     return out.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def blocked_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             positions: torch.Tensor, window: Optional[int] = None,
+                             block_q: int = 1024) -> torch.Tensor:
+    """Causal (optionally sliding-window) attention one query block at a
+    time, so only (B, H, block_q, S_kv) scores are live: q (B, S, Hq, D),
+    k/v (B, S, Hkv, D), positions (B, S).  With a ``window`` each block
+    reads a key span of ``window + block_q`` (the last ``S`` at most).  When
+    ``block_q`` does not divide S it is :func:`gqa_attention` with the full
+    mask.  Plain torch, as the JAX package's is outside any Pallas kernel."""
+    B, S, Hq, D = q.shape
+    if S % block_q:
+        return gqa_attention(q, k, v, attention_mask(positions, positions, True, window))
+    span = S if window is None else min(window + block_q, S)
+    outs = []
+    for s0 in range(0, S, block_q):
+        start = max(0, s0 + block_q - span)
+        kv_pos = torch.arange(start, start + span, dtype=torch.int32,
+                              device=q.device).expand(B, span)
+        mask = attention_mask(positions[:, s0:s0 + block_q], kv_pos, causal=True,
+                              window=window)
+        outs.append(gqa_attention(q[:, s0:s0 + block_q], k[:, start:start + span],
+                                  v[:, start:start + span], mask))
+    return torch.cat(outs, dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -217,13 +243,19 @@ def ffn(x: torch.Tensor, params: dict, act: str = "silu", gated: bool = True):
     return dense(a(h), params["w_down"], params.get("b_down"))
 
 
-def init_ffn(gen, d_model: int, d_ff: int, dtype, device, gated: bool = True) -> dict:
+def init_ffn(gen, d_model: int, d_ff: int, dtype, device, gated: bool = True,
+             bias: bool = False) -> dict:
+    """Gated (``w_gate``, ``w_up``, ``w_down``) or plain (``w_up``,
+    ``w_down``, with zero ``b_up`` / ``b_down`` when ``bias``) weights."""
     s_in, s_ff = 1.0 / math.sqrt(d_model), 1.0 / math.sqrt(d_ff)
     p = {}
     if gated:
         p["w_gate"] = normal(gen, (d_model, d_ff), s_in, dtype, device)
     p["w_up"] = normal(gen, (d_model, d_ff), s_in, dtype, device)
     p["w_down"] = normal(gen, (d_ff, d_model), s_ff, dtype, device)
+    if bias and not gated:
+        p["b_up"] = torch.zeros((d_ff,), dtype=torch_dtype(dtype), device=device)
+        p["b_down"] = torch.zeros((d_model,), dtype=torch_dtype(dtype), device=device)
     return p
 
 

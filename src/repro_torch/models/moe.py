@@ -1,7 +1,7 @@
 """Mixture-of-Experts decoder LM (olmoe-1b-7b: 64 routed experts, top-8;
 deepseek-moe-16b's shared experts and dense first layers are in the config
-too) — the port of ``repro.models.moe`` for merge-and-serve and paged
-streaming decode (blocked prefill waits for a later slice).
+too) — the port of ``repro.models.moe`` for merge-and-serve,
+prefill and paged streaming decode.
 
 Routing is the GShard/Switch capacity formulation written as dense
 products, as the JAX package writes it:
@@ -320,6 +320,26 @@ def decode_step(cfg: MoELMConfig, params: dict, cache: dict, tokens: torch.Tenso
                                positions, length, ffn=_moe_ffn(cfg, p))
     length.add_(Sn)
     return head(cfg, params, x), cache
+
+
+def prefill(cfg: MoELMConfig, params: dict, tokens: torch.Tensor, max_len: int) -> tuple:
+    """Prefill the caches of :func:`init_cache` from a whole prompt (B, S)
+    through ``transformer._block_prefill`` (flash attention) with the
+    dense or routed feed-forward.  Returns (logits (B, 1, V) of the last
+    position, cache with ``length`` S)."""
+    B, S = tokens.shape
+    positions = T.standard_positions(tokens)
+    x = L.embed(tokens, params["embed"]["table"])
+    cache = init_cache(cfg, B, max_len, device=tokens.device)
+    for i in range(cfg.first_dense_layers):
+        x = T._block_prefill(cfg, params["dense_blocks"][str(i)], x, positions,
+                             {"k": cache["k_dense"][i], "v": cache["v_dense"][i]})
+    for i in range(cfg.n_layers - cfg.first_dense_layers):
+        p = params["blocks"][str(i)]
+        x = T._block_prefill(cfg, p, x, positions, {"k": cache["k"][i], "v": cache["v"][i]},
+                             ffn=_moe_ffn(cfg, p))
+    cache["length"].fill_(S)
+    return head(cfg, params, x[:, -1:]), cache
 
 
 # ---------------------------------------------------------------------------

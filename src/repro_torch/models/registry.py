@@ -1,8 +1,18 @@
-"""MergeableAdapter — the merge pipeline's model-facing contract (the port
-of ``repro.models.registry``: the merge, calibration, split-serve and
-decode tiers of small_cnn and the four token-LM families, dense, ssm,
-hybrid and moe; the records-only ``FamilyAdapter`` waits for a later
-slice).
+"""The model zoo's two registries (the port of ``repro.models.registry``).
+
+* **ModelFamily** — the call surface of each of the seven families
+  (init / loss / forward / prefill / decode_step):
+
+      fam = get_family("moe")
+      params = fam.init(cfg, seed, device)
+      loss   = fam.loss(cfg, params, batch)
+      logits, cache = fam.prefill(cfg, params, ...)
+      logits, cache = fam.decode_step(cfg, params, cache, tokens)
+
+* **MergeableAdapter** — the merge pipeline's model-facing contract: the
+  merge, calibration, split-serve and decode tiers of small_cnn and the
+  four token-LM families (dense, ssm, hybrid, moe), and the records-only
+  :class:`FamilyAdapter` of vlm and encdec.
 
 Everything the planner, the store and the serving engine need from a model
 family is behind one interface:
@@ -14,8 +24,15 @@ family is behind one interface:
     split = a.split(cfg)                            # prefix/suffix serving
     ds = a.decode_split(cfg)                        # paged streaming decode
 
-Where the JAX package takes a PRNG key, the calibration tier takes a seed
-or a ``torch.Generator`` (whose device the batches are drawn on).
+Where the JAX package takes a PRNG key, ``init`` takes a seed (and a
+device), the calibration tier a seed or a ``torch.Generator`` (whose
+device the batches are drawn on).
+
+``batch`` layouts per family (all include "labels" and optional "mask"):
+    dense/moe/ssm/hybrid:   {"tokens": (B,S) int}
+    vlm:                    + {"patch_embeds": (B,P,d) float}
+    encdec:                 {"src_embeds": (B,Ssrc,d) float, "tokens": (B,Stgt)}
+    small_cnn:              {"images": (B,32,32,3) float}
 """
 from __future__ import annotations
 
@@ -25,7 +42,7 @@ from typing import Callable, Optional, Union
 import torch
 
 from repro_torch.core.signatures import records_from_params
-from repro_torch.models import griffin, moe, ssm, transformer, vision
+from repro_torch.models import encdec, griffin, moe, ssm, transformer, vision, vlm
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import dtype_name, flatten_paths, torch_dtype
 
@@ -35,6 +52,53 @@ def _generator(key: Union[int, torch.Generator], device=None) -> torch.Generator
     if isinstance(key, torch.Generator):
         return key
     return torch.Generator(device=resolve_device(device)).manual_seed(int(key))
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelFamily:
+    """One family's functions; ``init(cfg, seed, device)``."""
+
+    name: str
+    config_cls: type
+    init: Callable
+    loss: Callable
+    forward: Callable
+    init_cache: Optional[Callable] = None
+    decode_step: Optional[Callable] = None
+    prefill: Optional[Callable] = None
+    has_decode: bool = True
+
+
+FAMILIES: dict = {
+    "dense": ModelFamily(
+        "dense", transformer.DenseLMConfig, transformer.init, transformer.loss_fn,
+        transformer.forward, transformer.init_cache, transformer.decode_step,
+        transformer.prefill),
+    "moe": ModelFamily(
+        "moe", moe.MoELMConfig, moe.init, moe.loss_fn, moe.forward,
+        moe.init_cache, moe.decode_step, moe.prefill),
+    "ssm": ModelFamily(
+        "ssm", ssm.MambaConfig, ssm.init, ssm.loss_fn, ssm.forward,
+        ssm.init_cache, ssm.decode_step, ssm.prefill),
+    "hybrid": ModelFamily(
+        "hybrid", griffin.GriffinConfig, griffin.init, griffin.loss_fn,
+        griffin.forward, griffin.init_cache, griffin.decode_step, griffin.prefill),
+    "vlm": ModelFamily(
+        "vlm", vlm.VLMConfig, vlm.init, vlm.loss_fn, vlm.forward,
+        vlm.init_cache, vlm.decode_step, vlm.prefill),
+    # encdec's cache needs the encoder output: encdec.init_cache(cfg, params,
+    # enc_out, batch, max_len), or its prefill
+    "encdec": ModelFamily(
+        "encdec", encdec.EncDecConfig, encdec.init, encdec.loss_fn,
+        encdec.forward, None, encdec.decode_step, encdec.prefill),
+    "small_cnn": ModelFamily(
+        "small_cnn", vision.SmallCNNConfig, vision.init_small_cnn,
+        vision.small_cnn_loss, vision.small_cnn_forward, has_decode=False),
+}
+
+
+def get_family(name: str) -> ModelFamily:
+    return FAMILIES[name]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -483,6 +547,41 @@ class MoEAdapter(_TokenLMAdapter):
         return dataclasses.replace(cfg, group_size=1)
 
 
+class FamilyAdapter(MergeableAdapter):
+    """Records-only adapter over a :class:`ModelFamily`: the family merges
+    through the shared records path (over params or ``meta`` trees), and
+    ``accuracy`` works from its batch layout; calibration and the serving
+    splits need a family-specific adapter."""
+
+    def __init__(self, fam: ModelFamily):
+        super().__init__()
+        self.fam = fam
+        self.name = fam.name
+        self.family = fam.name
+
+    def default_config(self):
+        return self.fam.config_cls()
+
+    def init(self, cfg, seed: int = 0, device=None):
+        return self.fam.init(cfg, seed, device)
+
+    def forward(self, cfg, params, x):
+        return self.fam.forward(cfg, params, x)
+
+    def loss(self, cfg, params, batch):
+        return self.fam.loss(cfg, params, batch)
+
+    def forward_batch(self, cfg, params, batch: dict):
+        """The text logits of the family's batch layout (module docstring)."""
+        if self.name == "vlm":
+            logits = self.fam.forward(cfg, params, batch["tokens"], batch["patch_embeds"])
+            return logits[:, batch["patch_embeds"].shape[1]:, :]
+        if self.name == "encdec":
+            return self.fam.forward(cfg, params, batch["src_embeds"], batch["tokens"])
+        out = self.fam.forward(cfg, params, batch["tokens"])
+        return out[0] if isinstance(out, tuple) else out
+
+
 ADAPTERS: dict = {}
 
 
@@ -500,3 +599,5 @@ register_adapter(DenseLMAdapter())
 register_adapter(SSMAdapter())
 register_adapter(GriffinAdapter())
 register_adapter(MoEAdapter())
+for _name in ("vlm", "encdec"):
+    register_adapter(FamilyAdapter(FAMILIES[_name]))

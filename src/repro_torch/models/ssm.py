@@ -302,6 +302,14 @@ def decode_step(cfg: MambaConfig, params: dict, cache: dict,
                                   "length": cache["length"] + tokens.shape[1]}
 
 
+def prefill(cfg: MambaConfig, params: dict, tokens: torch.Tensor, max_len: int = 0) -> tuple:
+    """A fresh state on the tokens' device, then :func:`decode_step` over
+    the whole prompt.  Returns (logits (B, S, V), cache); ``max_len`` is
+    unused, as in :func:`init_cache`."""
+    cache = init_cache(cfg, tokens.shape[0], max_len, device=tokens.device)
+    return decode_step(cfg, params, cache, tokens)
+
+
 # ---------------------------------------------------------------------------
 # Paged decode: the recurrent state in the serving pool
 # ---------------------------------------------------------------------------

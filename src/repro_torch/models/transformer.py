@@ -1,12 +1,16 @@
 """Dense decoder-only transformer (GQA) — the port of
-``repro.models.transformer`` for merge-and-serve and paged streaming decode
-(blocked prefill waits for a later slice).
+``repro.models.transformer``: merge-and-serve, prefill and paged
+streaming decode of qwen2-72b, qwen3-14b, olmo-1b, stablelm-1.6b and the
+internvl2-2b language backbone.
 
 Parameters are nested dicts with per-layer blocks ``blocks/<i>/...`` (the
-JAX package's ``scan_layers=False`` layout).  Full-sequence attention goes
-through ``kernels.ops.flash_attention``, one-token decode attention through
-``ops.decode_attention`` and the paged KV view through ``ops.page_gather``:
-the Hopper kernel on a CUDA tensor, the plain version on a CPU tensor.
+JAX package's ``scan_layers=False`` layout).  Full-sequence attention over
+positions 0..S-1 goes through ``kernels.ops.flash_attention``, one-token
+decode attention through ``ops.decode_attention`` and the paged KV view
+through ``ops.page_gather``: the Hopper kernel on a CUDA tensor, the plain
+version on a CPU tensor; so does the prefill over 0..S-1.  Explicit
+positions take the masked ``layers.gqa_attention``, and in a prefill
+``layers.blocked_causal_attention``, plain torch as in the JAX package.
 
 Where the JAX package returns updated copies of a KV cache or pool, this
 port writes into it in place and returns the same tensors: updating the
@@ -51,6 +55,9 @@ class DenseLMConfig:
     # decode-time KV head replication factor (1 = none): the cache stores
     # every kv head kv_repl times
     kv_repl: int = 1
+    # the blocking of a prefill's attention over explicit positions: bounds
+    # live scores to (block_q, S)
+    prefill_block_q: int = 1024
 
     @property
     def padded_vocab(self) -> int:
@@ -139,9 +146,12 @@ def _dense_ffn(cfg: DenseLMConfig, p: dict):
 
 
 def _block(cfg: DenseLMConfig, p: dict, x: torch.Tensor, positions: torch.Tensor,
-           taps: Optional[dict] = None, tap_prefix: str = "", ffn=None) -> torch.Tensor:
-    """Full-sequence block over contiguous positions; attention through
-    ``ops.flash_attention``.  A non-parametric norm has no leaves, so its
+           taps: Optional[dict] = None, tap_prefix: str = "", ffn=None,
+           std_positions: bool = True) -> torch.Tensor:
+    """Full-sequence block.  Over the standard positions 0..S-1
+    (``std_positions``) attention goes through ``ops.flash_attention``; other
+    positions take the masked ``layers.gqa_attention``, as in the JAX
+    package.  A non-parametric norm has no leaves, so its
     empty dict does not survive a flat-path round trip (store, bridge):
     norms are looked up with ``.get``.  ``ffn`` (default :func:`_dense_ffn`)
     is the feed-forward; the moe family passes its routed experts.
@@ -153,8 +163,12 @@ def _block(cfg: DenseLMConfig, p: dict, x: torch.Tensor, positions: torch.Tensor
     if taps is not None and p.get("ln1"):
         taps[tap_prefix + "ln1"] = h
     q, k, v = _qkv(cfg, p["attn"], h, positions)
-    attn = kops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                                causal=True, window=cfg.window)
+    if std_positions:
+        attn = kops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                    causal=True, window=cfg.window)
+    else:
+        mask = L.attention_mask(positions, positions, causal=True, window=cfg.window)
+        attn = L.gqa_attention(q, k, v, mask)
     a = L.dense(attn.reshape(x.shape[0], x.shape[1], -1), p["attn"]["wo"])
     if taps is not None:
         taps[tap_prefix + "attn"] = a
@@ -171,19 +185,28 @@ def _softcap(cfg: DenseLMConfig, logits: torch.Tensor) -> torch.Tensor:
     return torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
 
 
+def standard_positions(tokens: torch.Tensor) -> torch.Tensor:
+    """The positions 0..S-1 of every row of ``tokens`` (B, S), int32."""
+    B, S = tokens.shape[:2]
+    return torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
+
+
 def trunk(cfg: DenseLMConfig, params: dict, tokens: torch.Tensor,
+          positions: Optional[torch.Tensor] = None,
           taps: Optional[dict] = None) -> torch.Tensor:
     """Embedding + transformer blocks — the mergeable *prefix*.  Returns
-    pre-final-norm hidden states (B, S, d).  ``taps`` collects per-layer
-    probes keyed by param-path prefix (see :func:`_block`)."""
-    B, S = tokens.shape
-    positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
+    pre-final-norm hidden states (B, S, d).  ``positions`` (B, S), when
+    given, take the masked attention (see :func:`_block`).  ``taps``
+    collects per-layer probes keyed by param-path prefix."""
+    std = positions is None
+    if std:
+        positions = standard_positions(tokens)
     x = L.embed(tokens, params["embed"]["table"])
     if taps is not None:
         taps["embed"] = x
     for i in range(cfg.n_layers):
         x = _block(cfg, params["blocks"][str(i)], x, positions, taps=taps,
-                   tap_prefix=f"blocks/{i}/")
+                   tap_prefix=f"blocks/{i}/", std_positions=std)
     return x
 
 
@@ -204,10 +227,11 @@ def head(cfg: DenseLMConfig, params: dict, x: torch.Tensor,
     return logits
 
 
-def forward(cfg: DenseLMConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+def forward(cfg: DenseLMConfig, params: dict, tokens: torch.Tensor,
+            positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, padded_vocab) float32.  Composed as
     ``head(trunk(x))`` so the serving split is bitwise identical to it."""
-    return head(cfg, params, trunk(cfg, params, tokens))
+    return head(cfg, params, trunk(cfg, params, tokens, positions))
 
 
 def loss_fn(cfg: DenseLMConfig, params: dict, batch: dict) -> torch.Tensor:
@@ -450,3 +474,60 @@ def paged_decode_step(cfg: DenseLMConfig, params: dict, pool: dict,
     paged twin of :func:`decode_step`.  Returns (logits (B, 1, V), pool)."""
     x, pool = paged_trunk_step(cfg, params, pool, tables, lengths, tokens)
     return head(cfg, params, x), pool
+
+
+# ---------------------------------------------------------------------------
+# Blocked prefill: a padded KV cache and the last position's logits
+# ---------------------------------------------------------------------------
+
+
+def _block_prefill(cfg: DenseLMConfig, p: dict, x: torch.Tensor, positions: torch.Tensor,
+                   cache_l: dict, ffn=None, std_positions: bool = True) -> torch.Tensor:
+    """One layer of the prefill, with this layer's k/v written into slots
+    0..S-1 of its cache layer ``cache_l`` (B, Smax, Hs, D), whatever the
+    positions (as the JAX package pads), every kv head stored ``kv_repl``
+    times.  Attention over the standard positions
+    0..S-1 (``std_positions``) goes through ``ops.flash_attention``, as in
+    :func:`_block`; other positions through
+    ``layers.blocked_causal_attention`` (live scores bounded to
+    (``prefill_block_q``, S)), as in the JAX package.  ``ffn`` as in
+    :func:`_block`."""
+    B, S, _ = x.shape
+    h = L.apply_norm(cfg.norm, x, p.get("ln1", {}))
+    q, k, v = _qkv(cfg, p["attn"], h, positions)
+    _write_kv(cache_l["k"], cache_l["v"], k, v, torch.arange(S, device=x.device), cfg.kv_repl)
+    if std_positions:
+        attn = kops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                    causal=True, window=cfg.window)
+    else:
+        attn = L.blocked_causal_attention(q, k, v, positions, window=cfg.window,
+                                          block_q=cfg.prefill_block_q)
+    x = x + L.dense(attn.reshape(B, S, -1), p["attn"]["wo"])
+    h = L.apply_norm(cfg.norm, x, p.get("ln2", {}))
+    return x + (ffn or _dense_ffn(cfg, p))(h)
+
+
+def prefill(cfg: DenseLMConfig, params: dict, tokens: torch.Tensor, max_len: int) -> tuple:
+    """Prefill a cache from a whole prompt (B, S): returns (logits (B, 1, V)
+    of the last position, cache) in :func:`init_cache`'s layout with
+    ``length`` S, ready for :func:`decode_step`."""
+    x = L.embed(tokens, params["embed"]["table"])
+    return prefill_from_embeddings(cfg, params, x, None, max_len)
+
+
+def prefill_from_embeddings(cfg: DenseLMConfig, params: dict, x: torch.Tensor,
+                            positions: Optional[torch.Tensor], max_len: int) -> tuple:
+    """:func:`prefill` from embeddings x (B, S, d) (the vlm family
+    prepends its patch embeddings) at ``positions`` (B, S); ``None`` means
+    0..S-1, whose attention goes through ``ops.flash_attention`` (see
+    :func:`_block_prefill`)."""
+    B, S, _ = x.shape
+    std = positions is None
+    if std:
+        positions = standard_positions(x)
+    cache = init_cache(cfg, B, max_len, device=x.device)
+    for i in range(cfg.n_layers):
+        x = _block_prefill(cfg, params["blocks"][str(i)], x, positions,
+                           {"k": cache["k"][i], "v": cache["v"][i]}, std_positions=std)
+    cache["length"].fill_(S)
+    return head(cfg, params, x[:, -1:]), cache

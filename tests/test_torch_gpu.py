@@ -1477,3 +1477,79 @@ def test_lm_bench_defaults_run_on_the_card(cuda_device, bench, tmp_path, monkeyp
         out = mod.run(device=cuda_device)
         assert all(mod.gates(out["derived"]).values()), out["derived"]
     assert ops.kernel_launches()["flash_attention"] > before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Hq,Hkv", [(40, 8), (64, 8)])
+def test_flash_kernel_at_qwen_head_groups(cuda_device, dtype, Hq, Hkv):
+    """qwen3-14b's 40 query heads on 8 kv heads (a group of 5) and
+    qwen2-72b's 64 on 8, at head dim 128, causal, S = 128 and a ragged 75."""
+    rnd = _rnd(cuda_device, dtype, 5)
+    for S in (128, 75):
+        q, k, v = rnd(2, S, Hq, 128), rnd(2, S, Hkv, 128), rnd(2, S, Hkv, 128)
+        out = ops.flash_attention(q, k, v)
+        torch.testing.assert_close(out.float(), tref.flash_attention_ref(q, k, v).float(),
+                                   **TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernel_at_group_5_and_on_a_kv_repl_cache(cuda_device, dtype):
+    """A group of 5 (qwen3-14b: 40 on 8) against the plain version, and
+    qwen2-72b's cache of every kv head stored twice (64 query heads on 16
+    stored, a group of 4) against the plain version on the cache without
+    the copies (64 on 8): query head h reads stored head h // 4, a copy of
+    kv head h // 8."""
+    rnd = _rnd(cuda_device, dtype, 6)
+    lens = torch.tensor([129, 136, 1], dtype=torch.int32, device=cuda_device)
+    q, k, v = rnd(3, 40, 128), rnd(3, 136, 8, 128), rnd(3, 136, 8, 128)
+    torch.testing.assert_close(ops.decode_attention(q, k, v, lens).float(),
+                               tref.decode_attention_ref(q, k, v, lens).float(), **TOL[dtype])
+    q = rnd(3, 64, 128)
+    kr, vr = (t.repeat_interleave(2, dim=2).contiguous() for t in (k, v))
+    before = ops.kernel_launches()["decode_attention"]
+    out = ops.decode_attention(q, kr, vr, lens)
+    assert ops.kernel_launches()["decode_attention"] == before + 1
+    torch.testing.assert_close(out.float(), tref.decode_attention_ref(q, k, v, lens).float(),
+                               **TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_vlm_prefill_and_decode_on_the_card(cuda_device):
+    """A tiny-width vlm (head dim 16, 4 query heads on 2 kv heads, a cache
+    of each kv head stored twice) in float32: forward, prefill and two
+    decode steps on the card against the same calls on the CPU (the plain
+    versions), with flash_attention launched by the forward and the
+    prefill and decode_attention by the steps."""
+    from repro_torch.models import vlm
+    from repro_torch.utils.tree import flatten_paths, unflatten_paths
+
+    cfg = vlm.VLMConfig(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
+                        d_ff=128, vocab_size=512, n_patches=8, kv_repl=2)
+    cpu = torch.device("cpu")
+    params = vlm.init(cfg, 0, cpu)
+    gen = torch.Generator(device=cpu).manual_seed(7)
+    toks = torch.randint(0, cfg.vocab_size, (2, 12), generator=gen)
+    patches = torch.randn((2, cfg.n_patches, cfg.d_model), generator=gen)
+    dev = {k: v.to(cuda_device) for k, v in flatten_paths(params).items()}
+    dparams = unflatten_paths(dev)
+    before = ops.kernel_launches()
+    got = vlm.forward(cfg, dparams, toks.to(cuda_device), patches.to(cuda_device))
+    torch.testing.assert_close(got.cpu(), vlm.forward(cfg, params, toks, patches),
+                               **TOL["float32"])
+    assert ops.kernel_launches()["flash_attention"] - before["flash_attention"] == cfg.n_layers
+    max_len = cfg.n_patches + 12
+    lc, cc = vlm.prefill(cfg, params, toks[:, :10], patches, max_len)
+    lg, cg = vlm.prefill(cfg, dparams, toks[:, :10].to(cuda_device), patches.to(cuda_device),
+                         max_len)
+    torch.testing.assert_close(lg.cpu(), lc, **TOL["float32"])
+    assert ops.kernel_launches()["flash_attention"] - before["flash_attention"] == \
+        2 * cfg.n_layers
+    for t in (10, 11):
+        lc, cc = vlm.decode_step(cfg, params, cc, toks[:, t:t + 1])
+        lg, cg = vlm.decode_step(cfg, dparams, cg, toks[:, t:t + 1].to(cuda_device))
+        torch.testing.assert_close(lg.cpu(), lc, **TOL["float32"])
+    assert int(cg["length"]) == cfg.n_patches + 12
+    after = ops.kernel_launches()
+    assert after["decode_attention"] - before["decode_attention"] == 2 * cfg.n_layers

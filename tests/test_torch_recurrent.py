@@ -190,14 +190,17 @@ def test_split_and_bank_are_bitwise_inside_the_port(family, which):
 
 
 def test_griffin_takes_standard_positions_only_and_has_no_decode_yet():
-    """The trunk serves only the standard positions 0..S-1; streaming decode
-    is there (tests/test_torch_griffin_decode.py holds it against the JAX
-    package): the adapter decodes and every program gets the split."""
+    """Explicit positions take the blocked attention (tests/test_torch_families.py
+    holds them against the JAX package); given as 0..S-1 they agree with the
+    standard path's flash attention.  Streaming decode is there
+    (tests/test_torch_griffin_decode.py holds it against the JAX package):
+    the adapter decodes and every program gets the split."""
     _, tcfg = _cfgs("hybrid", "adapter")
     params = get_adapter("hybrid").init(tcfg, seed=0, device=CPU)
-    toks = torch.zeros((1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="positions"):
-        TG.trunk(tcfg, params, toks, positions=torch.zeros((1, 4), dtype=torch.int32))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, tcfg.vocab_size, (2, 12)))
+    explicit = TG.trunk(tcfg, params, toks,
+                        positions=torch.arange(12, dtype=torch.int32).expand(2, 12))
+    torch.testing.assert_close(explicit, TG.trunk(tcfg, params, toks), rtol=1e-5, atol=1e-5)
     adapter = get_adapter("hybrid")
     assert adapter.can_decode
     ds = adapter.decode_split(tcfg)
