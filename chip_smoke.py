@@ -621,6 +621,10 @@ def kernel_checks(torch) -> dict:
                20, gen)
     check_bank(torch, "falcon-mamba-decode-head", 3, 8, 4096, 65024, "bfloat16", False, False,
                20, gen)
+    # the stablelm_sharded phase's shard-local head: one member of four on
+    # each shard, a decode bucket of 4 rows
+    check_bank(torch, "stablelm-shard-local", 1, 4, 2048, 100352, "bfloat16", False, False,
+               20, gen)
     check_bank(torch, "aligned-bias", 3, 100, 264, 520, "bfloat16", True, True, 50, gen)
     check_bank(torch, "small_cnn-fc1", 2, 8, 16, 64, "float32", True, True, 50, gen)
     check_bank(torch, "small_cnn-fc2", 2, 8, 64, 4, "float32", False, True, 50, gen)
@@ -2415,6 +2419,94 @@ def stablelm_decode_serve_phase(torch, scn, plan) -> tuple:
     return launches, routes
 
 
+SHARD_MIDS = ("lm-A", "lm-B", "lm-D", "lm-E")
+
+
+def stablelm_sharded_phase(torch, cfg) -> tuple:
+    """``bench.shard_serve.run`` on full-width stablelm-1.6b at
+    ``FAMILY_LAYERS`` (``stablelm_sharded``): the bench's scenario
+    (``numpy_scenario``, the zoo drawn on the card) cut to the merged group
+    (A, B, D, E) (``SHARD_MIDS``: at full width lm-C's random trunk merges
+    too, as in ``stablelm_lm_serve``, and a bank of five does not divide
+    over four shards, so it would replicate), planned and shipped by
+    ``lm_merging.ship_plan``, on a (2, 4) mesh of the card, the bank's four
+    members one to a shard.  Lanes: the unsharded
+    and the sharded decode of 8 requests (2 a member, 7 prompt + 5 new tokens,
+    chunked prefill on, logits recorded; graphs replayed), compared bit for
+    bit; the per-shard epoch accounting of ``apply_plan`` and
+    ``update_buffers``; the over-budget admission (a per-shard budget below
+    the group's resident bytes and at or above the largest shard's slice).
+    Gates: every gate of ``shard_serve`` (scripts/ci.sh's S3 gates, bitwise
+    in place of its ref/interpret pair), ``bank_matmul``, ``page_gather``
+    and ``decode_attention`` launched, the tensor-core routes only, and the
+    sharded lane launching ``bank_matmul`` ``n_shards`` times for each
+    launch of the unsharded lane, which makes the same bank dispatches.
+    Returns (kernel launches of the phase, their routes)."""
+    from repro_torch.bench import lm_merging as LMB
+    from repro_torch.bench import shard_serve as SSB
+    from repro_torch.kernels import ops
+
+    t_phase = start_phase(torch, "stablelm_sharded")
+    ops.reset_kernel_launches()
+    t0 = time.perf_counter()
+    scn = LMB.numpy_scenario(cfg, "cuda")
+    scn = dataclasses.replace(scn, zoo={m: scn.zoo[m] for m in SHARD_MIDS})
+    shipped = LMB.ship_plan(scn)
+    torch.cuda.synchronize()
+    cloud_s = time.perf_counter() - t0
+    lanes = {}
+    last = [collections.Counter(), collections.Counter()]
+    t_lane = [time.perf_counter()]
+
+    def on_lane(name, eng, stats):
+        torch.cuda.synchronize()
+        now = collections.Counter(ops.kernel_launches())
+        bank_routes = collections.Counter(ops.route_launches()["bank_matmul"])
+        lanes[name] = dict(
+            steps=stats["steps"], completed=stats["completed"],
+            bank_dispatches=stats["bank_dispatches"],
+            prefill_chunk_dispatches=stats["prefill_chunk_dispatches"],
+            launches=dict(now - last[0]), bank_matmul_by_route=dict(bank_routes - last[1]),
+            graph_replays=eng.last_decoder.graphs.replays,
+            store_shards=eng.store.n_shards, seconds=time.perf_counter() - t_lane[0])
+        last[0], last[1] = now, bank_routes
+        t_lane[0] = time.perf_counter()
+
+    t_lane[0] = time.perf_counter()
+    out = SSB.run(scn, plan=shipped["plan"], on_lane=on_lane)
+    torch.cuda.synchronize()
+    d = out["derived"]
+    launches, routes = ops.kernel_launches(), ops.route_launches()
+    tensor_core_routes_only(routes)
+    n = d["n_shards"]
+    plain, sharded = lanes["unsharded"], lanes["sharded"]
+    gates = dict(SSB.gates(d))
+    for k in ("bank_matmul", "page_gather", "decode_attention"):
+        gates[f"{k} launches > 0"] = launches[k] > 0
+    gates["same bank dispatches in both lanes"] = \
+        sharded["bank_dispatches"] == plain["bank_dispatches"] > 0
+    gates["sharded bank launches == n_shards x unsharded"] = \
+        sharded["launches"]["bank_matmul"] == n * plain["launches"]["bank_matmul"] > 0
+    gates["graph replays in both lanes"] = plain["graph_replays"] > 0 < sharded["graph_replays"]
+    emit("stablelm_sharded", config=scn.cfg.name, layers=scn.cfg.n_layers,
+         members=list(scn.mids), mesh=d["mesh"], n_shards=n, rows=out["rows"], derived=d,
+         plan_groups=len(shipped["plan"].groups), plan_bytes=shipped["plan_bytes"],
+         seconds_cloud=shipped["seconds"], cloud_s=cloud_s,
+         gates=gates, bitwise=d["bitwise"], max_logit_diff=d["max_logit_diff"],
+         epochs=dict(apply_plan_epoch_bumps=d["apply_plan_epoch_bumps"],
+                     apply_plan_touched_shards=d["apply_plan_touched_shards"],
+                     update_buffers_bumped_shards=d["update_buffers_bumped_shards"]),
+         over_budget=dict(capacity_bytes=d["over_budget_capacity_bytes"],
+                          activation_bytes=d["over_budget_activation_bytes"],
+                          group_resident_bytes=d["group_resident_bytes"],
+                          max_shard_resident_bytes=d["max_shard_resident_bytes"],
+                          completed=d["over_budget_completed"]),
+         lanes=lanes, launches=launches, route_launches=routes,
+         seconds=time.perf_counter() - t_phase)
+    assert all(gates.values()), {k: v for k, v in gates.items() if not v}
+    return launches, routes
+
+
 # ---------------------------------------------------------------------------
 # phase 10: joint retraining on the card
 # ---------------------------------------------------------------------------
@@ -3055,6 +3147,8 @@ def main() -> int:
     add(*run)
     add(*stablelm_decode_serve_phase(torch, lm_scn, lm_plan))
     del lm_scn, lm_plan, run
+    add(*stablelm_sharded_phase(torch, cut_depth(stablelm_1_6b.full_config(),
+                                                 FAMILY_LAYERS["stablelm"])))
     *run, drift_loop = stablelm_drift_phase(torch, dataclasses.replace(
         stablelm_1_6b.full_config(), n_layers=DRIFT_LAYERS))
     add(*run)

@@ -1,6 +1,5 @@
 """ParamStore — the weight-unification substrate (the port of
-``repro.core.store`` on one device; mesh placement and per-shard epochs
-wait for the sharded bank).
+``repro.core.store``).
 
 A store holds *physical* buffers (tensors) keyed by string ids; each model
 has a *binding map* ``{leaf_path: store_key}``.  Unmerged models bind every
@@ -22,15 +21,35 @@ Resident bytes = unique buffers, which is what merging saves.  Bindings
 change only at merge/unmerge time, so the serve loop reuses one tree per
 model per *binding epoch* (:meth:`materialize_cached`);
 :attr:`materializations` counts rebuilds.
+
+**Mesh-sharded serve tier (DESIGN.md S3).**  A store can carry an injected
+``placement`` (``distributed.partitioning.MeshPlacement``; the caller
+builds the logical rules and hands them in).  With a placement installed
+every key has a deterministic *home shard* ``shard_of(key) =
+stable_seed(key) % n_shards`` (bookkeeping identity: per-shard epochs and
+DMA/residency attribution, the JAX package's to the bit), mutators place
+committed buffers under their binding path's partitioning rules, and
+:meth:`materialize_bank` splits the stacked suffix bank's leading axis over
+the mesh's ``model`` axis (``MeshPlacement.place_bank``).  Residency
+semantics: shared trunk buffers replicate across shards, private buffers
+live on their home shard — :meth:`resident_shards` is the scheduler's
+per-device admission view.
+
+**Per-shard epochs**: alongside the global counter every shard keeps its
+own epoch in :attr:`shard_epochs`.  ``bump_epoch(keys=...)`` names the
+touched store keys; exactly the home shards of those keys advance once.
+``keys=None`` (global invalidation: a placement change) advances every
+shard.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Iterable, Optional
 
 import torch
 
 from repro_torch.core.groups import LayerGroup, disambiguate_base, stable_group_id
+from repro_torch.utils.ids import stable_seed
 from repro_torch.utils.tree import flatten_paths, leaf_bytes, unflatten_paths
 
 
@@ -45,36 +64,107 @@ class ParamStore:
     epoch: int = 0  # bumped on every rebinding / buffer commit
     materializations: dict = dataclasses.field(default_factory=dict)
     _cache: dict = dataclasses.field(default_factory=dict, repr=False)
+    # mesh placement (distributed.partitioning.MeshPlacement), injected by
+    # the caller; None on a single device
+    placement: Optional[Any] = None
+    shard_epochs: dict = dataclasses.field(default_factory=dict)
+
+    # -- shard identity -------------------------------------------------------
+
+    @property
+    def n_shards(self) -> int:
+        return self.placement.n_shards if self.placement is not None else 1
+
+    def shard_of(self, key: str) -> int:
+        """Deterministic home shard of a store key (per-shard epochs,
+        residency/DMA attribution), stable across processes and independent
+        of physical placement."""
+        return stable_seed(key) % self.n_shards
+
+    def resident_shards(self, key: str) -> tuple:
+        """Shards on which a resident copy of ``key`` lives: shared buffers
+        replicate across the mesh, private buffers live on their home
+        shard.  The scheduler's per-device admission view; the shared set
+        is recomputed per binding epoch."""
+        if self.n_shards == 1:
+            return (0,)
+        shared = self._cache.get("__shared_keys__")
+        if shared is None:
+            shared = self._cache["__shared_keys__"] = frozenset(self.shared_keys())
+        if key in shared:
+            return tuple(range(self.n_shards))
+        return (self.shard_of(key),)
 
     # -- cache bookkeeping ----------------------------------------------------
 
-    def bump_epoch(self) -> int:
+    def bump_epoch(self, keys: Optional[Iterable] = None) -> int:
         """Invalidate every cached tree and bank (bindings or buffer values
-        changed)."""
+        changed).  ``keys`` names the store keys the mutation touched: their
+        home shards' epochs advance exactly once; ``None`` advances every
+        shard."""
         self.epoch += 1
+        shards = range(self.n_shards) if keys is None else {self.shard_of(k) for k in keys}
+        for s in shards:
+            self.shard_epochs[s] = self.shard_epochs.get(s, 0) + 1
         self._cache.clear()
         return self.epoch
 
     def update_buffers(self, new: dict) -> None:
         """Commit new buffer values (e.g. after joint retraining) and
-        invalidate cached trees that reference the old tensors."""
+        invalidate cached trees that reference the old tensors.  Only the
+        touched keys' home shards advance their epoch."""
+        if self.placement is not None and new:
+            paths = self._paths_for(set(new))
+            new = {k: self._place(v, paths.get(k)) for k, v in new.items()}
         self.buffers.update(new)
+        self.bump_epoch(keys=new.keys())
+
+    # -- placement ------------------------------------------------------------
+
+    def _place(self, value, path: Optional[str]):
+        """Place a committed buffer under its binding path's partitioning
+        rules (no-op without a placement)."""
+        if self.placement is None:
+            return value
+        return self.placement.place(value, path)
+
+    def _paths_for(self, keys: set) -> dict:
+        """A representative binding path per key (the partitioning rules key
+        on the path tail; every binding of a shared key is congruent)."""
+        out: dict = {}
+        for binding in self.bindings.values():
+            for p, k in binding.items():
+                if k in keys and k not in out:
+                    out[k] = p
+        return out
+
+    def set_placement(self, placement: Optional[Any]) -> None:
+        """Install (or clear) the mesh placement and re-place every buffer —
+        the elastic mesh-change path (``ckpt.reshard.reshard_store``).
+        Global invalidation: every shard's epoch advances once."""
+        self.placement = placement
+        if placement is not None:
+            paths = self._paths_for(set(self.buffers))
+            for k in list(self.buffers):
+                self.buffers[k] = self._place(self.buffers[k], paths.get(k))
         self.bump_epoch()
 
     # -- construction ---------------------------------------------------------
 
     @classmethod
-    def from_models(cls, models: dict) -> "ParamStore":
-        """models: {model_id: params tree}."""
+    def from_models(cls, models: dict, placement: Optional[Any] = None) -> "ParamStore":
+        """models: {model_id: params tree}.  With a ``placement`` every leaf
+        is placed under its path's rules (on a mesh of the leaves' own
+        device, the leaf itself)."""
         buffers: dict = {}
         bindings: dict = {}
         for mid, params in models.items():
             bindings[mid] = {}
             for path, leaf in flatten_paths(params).items():
                 key = _private_key(mid, path)
-                buffers[key] = leaf
+                buffers[key] = placement.place(leaf, path) if placement is not None else leaf
                 bindings[mid][path] = key
-        return cls(buffers, bindings)
+        return cls(buffers, bindings, placement=placement)
 
     # -- merging --------------------------------------------------------------
 
@@ -88,32 +178,38 @@ class ParamStore:
             lambda p: any(k.startswith(p) for k in self.buffers),
         )
         keys = []
+        touched: set = set()
         for ci, col in enumerate(group.columns()):
             if len(col) < 2:
                 continue  # single appearance: nothing to share
             gid = f"{base}:c{ci}"
             donor = col[0]
-            self.buffers[gid] = self.buffers[self.bindings[donor.model_id][donor.path]]
+            self.buffers[gid] = self._place(
+                self.buffers[self.bindings[donor.model_id][donor.path]], donor.path)
+            touched.add(gid)
             for r in col:
                 old = self.bindings[r.model_id][r.path]
                 self.bindings[r.model_id][r.path] = gid
                 if old != gid:
+                    touched.add(old)
                     self._gc_key(old)
             keys.append(gid)
         if keys:
-            self.bump_epoch()
+            self.bump_epoch(keys=touched)
         return keys
 
     def unmerge(self, group: LayerGroup) -> None:
         """Give every member back a private copy of its current weights."""
+        touched: set = set()
         for r in group.records:
             cur = self.bindings[r.model_id][r.path]
             priv = _private_key(r.model_id, r.path)
             if priv != cur:
-                self.buffers[priv] = self.buffers[cur].clone()
+                self.buffers[priv] = self._place(self.buffers[cur].clone(), r.path)
             self.bindings[r.model_id][r.path] = priv
+            touched.update((cur, priv))
         self._gc_unreferenced()  # shared buffers may now be orphaned
-        self.bump_epoch()
+        self.bump_epoch(keys=touched)
 
     def _gc_key(self, key: str) -> None:
         for binding in self.bindings.values():
@@ -204,7 +300,7 @@ class ParamStore:
 
         carried = plan.shared_weights or {}
         remap = self._plan_key_remap(plan)
-        staged: list = []  # (key, value, [(model_id, path), ...])
+        staged: list = []  # (key, value, path, [(model_id, path), ...])
         for pg in plan.groups:
             for col in pg.columns:
                 final = remap.get(col.key, col.key)
@@ -219,16 +315,22 @@ class ParamStore:
                 else:
                     dm, dp = col.donor
                     val = self.buffers[self.bindings[dm][dp]]
-                staged.append((final, val, [(r.model_id, r.path) for r in col.members]))
+                staged.append((final, val, col.members[0].path,
+                               [(r.model_id, r.path) for r in col.members]))
         keys = []
-        for key, val, members in staged:
-            self.buffers[key] = val
+        touched: set = set()
+        for key, val, path, members in staged:
+            self.buffers[key] = self._place(val, path)
+            touched.add(key)
             for mid, mpath in members:
+                old = self.bindings[mid][mpath]
+                if old != key:
+                    touched.add(old)
                 self.bindings[mid][mpath] = key
             keys.append(key)
         self._gc_unreferenced()
         if keys:
-            self.bump_epoch()
+            self.bump_epoch(keys=touched)
         return keys
 
     # -- materialisation ------------------------------------------------------
@@ -263,7 +365,9 @@ class ParamStore:
         ``leaf[path][n] == buffers[bindings[model_ids[n]][path]]`` —
         restricted to ``paths``.  The stack is a new device tensor, cached
         per binding epoch like :meth:`materialize_cached`; rebuilds count in
-        :attr:`materializations` under :meth:`bank_id`."""
+        :attr:`materializations` under :meth:`bank_id`.  Under a placement
+        each leaf's bank axis is split over the mesh's ``model`` axis
+        (``MeshPlacement.place_bank``), the sharded dispatch's input."""
         model_ids = tuple(model_ids)
         pkey = None if paths is None else frozenset(paths)
         ckey = ("__bank__", model_ids, pkey)
@@ -273,6 +377,8 @@ class ParamStore:
         use = sorted(self.bindings[model_ids[0]]) if paths is None else sorted(pkey)
         flat = {p: torch.stack([self.buffers[self.bindings[m][p]] for m in model_ids])
                 for p in use}
+        if self.placement is not None:
+            flat = {p: self.placement.place_bank(a) for p, a in flat.items()}
         tree = unflatten_paths(flat)
         self._cache[ckey] = tree
         bid = self.bank_id(model_ids)
@@ -286,6 +392,19 @@ class ParamStore:
         ids = model_ids if model_ids is not None else list(self.bindings.keys())
         keys = {self.bindings[m][p] for m in ids for p in self.bindings[m]}
         return sum(leaf_bytes(self.buffers[k]) for k in keys)
+
+    def resident_bytes_by_shard(self, model_ids: Optional[list] = None) -> dict:
+        """Per-shard resident bytes for a set of models: shared buffers count
+        on every shard (replicated trunk), private buffers on their home
+        shard — the per-device view the sharded scheduler budgets against."""
+        ids = model_ids if model_ids is not None else list(self.bindings.keys())
+        keys = {self.bindings[m][p] for m in ids for p in self.bindings[m]}
+        out = {s: 0 for s in range(self.n_shards)}
+        for k in keys:
+            nbytes = leaf_bytes(self.buffers[k])
+            for s in self.resident_shards(k):
+                out[s] += nbytes
+        return out
 
     def model_bytes(self, model_id: str) -> int:
         return sum(leaf_bytes(self.buffers[k])

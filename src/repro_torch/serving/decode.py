@@ -21,16 +21,18 @@ dispatch).  The KV side mirrors the weight side's page discipline:
   pool's epoch once, and re-reads ``prefix_groups()`` so re-merged trunks
   coalesce immediately.  In-flight page tables and lengths survive.
 
-This port is single-device: the bank fan-out calls ``bank_head`` directly
-(the JAX package routes it through the engine's mesh-sharding wrapper) and
-admission does not do per-shard DMA accounting; both belong to the
-placement tier, which comes later.  Where the JAX package jits each step
-kind once (``_fn``), the decoder on a CUDA device replays a CUDA graph per
+Over a store with a mesh placement (DESIGN.md S3) the bank fan-out runs
+through the engine's shard-local wrapper (``maybe_shard_bank``: one
+``bank_matmul`` launch per shard at the local member count), and each
+admission credits its load's bytes to the shards they land on
+(``AsyncDMA.account``).  Where the JAX package jits each step kind once
+(``_fn``), the decoder on a CUDA device replays a CUDA graph per
 (kind, callable, chunk, group, bucket, store epoch) (``serving.graphs``):
 the group step (trunk + bank or heads), the singleton step and each
 prefill chunk.  The pools are written in place and never reallocated, so a
 graph binds them for its life; an epoch move drops every graph.  On the
-CPU the same step bodies run eagerly.
+CPU, and over a mesh of several distinct devices (a captured graph runs on
+one), the same step bodies run eagerly.
 
 Paged == unpaged contract: the paged path gathers pages into exactly the
 contiguous ``init_cache`` layout (Smax = max_len) and both paths route
@@ -288,7 +290,9 @@ class StreamingDecoder:
         self._t0 = self.clock()
         self._epoch = self.store.epoch
         device = next(iter(self.store.buffers.values())).device
-        self.graphs = StepGraphs(device) if device.type == "cuda" else None
+        placement = self.store.placement
+        one_device = placement is None or len(placement.mesh.distinct_devices) == 1
+        self.graphs = StepGraphs(device) if device.type == "cuda" and one_device else None
         # trunk passes: one per trunk or singleton step dispatch and one per
         # token of a prefill-chunk dispatch -- each runs every trunk layer
         # once on one token per row -- in the warm-up and in the run
@@ -359,6 +363,7 @@ class StreamingDecoder:
             pool.admit(rid, need_tokens)
             r = self.engine.scheduler.load(req.instance_id, 1)
             self.engine.dma.wait((req.instance_id, "decode"), r["loaded_bytes"])
+            self.engine.dma.account(r["loaded_bytes_by_shard"])
             self.slots[rid] = _Slot(
                 rid, req, [int(t) for t in req.prompt],
                 logits=[] if self.record_logits else None,
@@ -535,8 +540,12 @@ class StreamingDecoder:
 
         params = self._params(group[0])
         if self._banked(group):
+            # under a mesh placement the fan-out is shard-local (an
+            # engine-cached wrapper of one identity per group size)
+            bank_head = self.engine.maybe_shard_bank(dec.bank_head, len(group))
+
             def body(params, bank, pool, tables, lengths, tokens):
-                return dec.bank_head(bank, trunk(params, pool, tables, lengths, tokens))[:, :, 0]
+                return bank_head(bank, trunk(params, pool, tables, lengths, tokens))[:, :, 0]
 
             return (("trunk", "bank", fkey(dec.trunk_step), tuple(group), bucket), body,
                     (params, self.engine._bank_params(group), self.pool_for(group[0])))

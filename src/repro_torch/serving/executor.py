@@ -6,8 +6,9 @@
   before each swap, and a per-request decode lane on a contiguous cache;
 * :class:`MergeAwareEngine` — the merge-aware hot path: shared prefix,
   suffix bank, async DMA prefetch, the streaming decode lane, the hot
-  MergePlan swap and the drift ``revert``.  The sharded bank waits for a
-  later slice.
+  MergePlan swap and the drift ``revert``.  Over a store with a mesh
+  placement (DESIGN.md S3) admission is per shard and the bank fan-out
+  runs shard-locally (:meth:`MergeAwareEngine.maybe_shard_bank`).
 
 PyTorch runs eagerly: where the JAX executors block on
 ``jax.block_until_ready`` these synchronise the device that holds the
@@ -355,9 +356,19 @@ class AsyncDMA:
         self.stall_s = 0.0
         self.hidden_s = 0.0
         self.transfers = 0
+        # per-shard transferred-bytes ledger (DESIGN.md S3): the sharded
+        # engine attributes each load's bytes to the shards they land on
+        self.bytes_by_shard: dict = {}
 
     def seconds_for(self, nbytes: int) -> float:
         return nbytes / 1e9 / self.gbps
+
+    def account(self, shard_bytes: dict) -> None:
+        """Credit a completed load's bytes to the shards they landed on
+        (``Scheduler.load``'s ``loaded_bytes_by_shard``)."""
+        for s, b in shard_bytes.items():
+            if b:
+                self.bytes_by_shard[s] = self.bytes_by_shard.get(s, 0) + b
 
     def start(self, key, nbytes: int) -> None:
         self._inflight[key] = (self.clock(), self.seconds_for(nbytes))
@@ -410,7 +421,13 @@ class MergeAwareEngine:
     ):
         self.store = store
         self.clock = clock  # shared with the DMA model and the decoder
-        self.scheduler = Scheduler(instances, capacity_bytes, costs)
+        # with a mesh-sharded store the capacity budget is PER-SHARD and
+        # admission checks every shard's slice (replicated trunk everywhere,
+        # private suffixes on their home shard) — DESIGN.md S3
+        self.scheduler = Scheduler(
+            instances, capacity_bytes, costs,
+            shard_fn=store.resident_shards if store.n_shards > 1 else None,
+            n_shards=store.n_shards)
         self.programs = {p.instance_id: p for p in programs}
         missing = set(self.programs) ^ {i.instance_id for i in instances}
         if missing:
@@ -430,6 +447,7 @@ class MergeAwareEngine:
         self._groups_epoch = -1
         self._sigs: dict = {}  # iid -> binding signature, per groups epoch
         self._bankable: dict = {}  # group tuple -> bool, per groups epoch
+        self._bank_sharded: dict = {}  # (callable, N, mesh, axis) -> shard-local fn
         self.last_decoder = None  # the StreamingDecoder of the last serve_decode
 
     @staticmethod
@@ -473,6 +491,38 @@ class MergeAwareEngine:
                    and None not in paths and len(paths) == 1)
             self._bankable[group] = hit
         return hit
+
+    def _bank_sharding_active(self, n_bank: int) -> bool:
+        """Sharded bank dispatch is on iff the store carries a mesh placement
+        with >1 shards on the bank axis AND the bank divides evenly over
+        them (an indivisible bank is placed replicated and dispatched
+        whole)."""
+        return (self.store.placement is not None and self.store.n_shards > 1
+                and n_bank % self.store.n_shards == 0)
+
+    def maybe_shard_bank(self, fn, n_bank: int):
+        """Wrap a bank fan-out callable ``(bank_params, feats) -> (N, ...)``
+        in ``distributed.sharding.shard_bank_fn`` over the placement's bank
+        axis when sharding is active for ``n_bank`` (DESIGN.md S3): each
+        shard runs the SAME callable over its N/n_shards bank slice with the
+        replicated features, so ``ops.bank_matmul`` launches once per shard
+        at the local member count.  Cached per (callable, N, mesh, axis), so
+        repeat callers see one function object."""
+        if not self._bank_sharding_active(n_bank):
+            return fn
+        from repro_torch.distributed.sharding import shard_bank_fn
+
+        pl = self.store.placement
+        key = (self._callable_key(fn), n_bank, pl.mesh, pl.bank_axis)
+        wrapped = self._bank_sharded.get(key)
+        if wrapped is None:
+            wrapped = self._bank_sharded[key] = shard_bank_fn(fn, pl.mesh, pl.bank_axis)
+        return wrapped
+
+    def _bank_fn(self, group: list):
+        """The group's bank fan-out: the lead program's ``bank_suffix``,
+        shard-local under an active mesh placement (:meth:`maybe_shard_bank`)."""
+        return self.maybe_shard_bank(self.programs[group[0]].bank_suffix, len(group))
 
     def _bank_params(self, group: list):
         """Stacked suffix-bank tree for the group, via the store's
@@ -635,7 +685,7 @@ class MergeAwareEngine:
                 lead = group[0]
                 feats = self.programs[lead].prefix(self._params(lead), batch)
                 self.stats["prefix_runs"] += 1
-                bank_out = self.programs[lead].bank_suffix(self._bank_params(group), feats)
+                bank_out = self._bank_fn(group)(self._bank_params(group), feats)
                 self.stats["suffix_runs"] += len(group)
                 self.stats["suffix_dispatches"] += 1
                 block_until_ready(bank_out)
@@ -696,7 +746,7 @@ class MergeAwareEngine:
                     if banked:
                         # single-member micro-batches still take the
                         # per-member path, so warm both fan-outs
-                        block_until_ready(lead.bank_suffix(self._bank_params(group), feats))
+                        block_until_ready(self._bank_fn(group)(self._bank_params(group), feats))
                     for iid in group:
                         block_until_ready(self.programs[iid].suffix(self._params(iid), feats))
                 else:
@@ -760,9 +810,15 @@ class MergeAwareEngine:
                 continue
             empty_streak = 0
             max_batch = min(len(reqs), self.buckets[-1])
-            loaded = sum(self.scheduler.load(iid, max_batch)["loaded_bytes"]
-                         for iid in group)
+            loaded = 0
+            shard_bytes: dict = {}
+            for iid in group:
+                r = self.scheduler.load(iid, max_batch)
+                loaded += r["loaded_bytes"]
+                for s, b in r["loaded_bytes_by_shard"].items():
+                    shard_bytes[s] = shard_bytes.get(s, 0) + b
             self.dma.wait(tuple(group), loaded)
+            self.dma.account(shard_bytes)
             # prefetch the NEXT group's incremental bytes; the transfer's
             # clock runs while this group computes (§3.2 pipelining)
             if tuple(nxt) != tuple(group):
@@ -788,5 +844,6 @@ class MergeAwareEngine:
             "binding_epochs": self.store.epoch - epoch_start + 1,
             "dma_stall_s": self.dma.stall_s - stall_before,
             "dma_hidden_s": self.dma.hidden_s - hidden_before,
+            "dma_bytes_by_shard": dict(self.dma.bytes_by_shard),
             **{k: v - stats_before[k] for k, v in self.stats.items()},
         }

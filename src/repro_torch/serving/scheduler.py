@@ -1,7 +1,6 @@
 """Merging-aware Nexus-variant scheduler (§3.2 + §5.4) — the port of
-``repro.serving.scheduler`` for one device (sharded admission waits for a
-later slice).  Pure policy: no framework code; the discrete-event
-simulator and the real executors both drive it.
+``repro.serving.scheduler``.  Pure policy: no framework code; the
+discrete-event simulator and the real executors both drive it.
 
   * round-robin order over model instances; with merging, instances that
     share the most bytes are placed adjacently so each swap loads only the
@@ -10,6 +9,8 @@ simulator and the real executors both drive it.
   * memory admission: the params resident set is tracked at store-key
     granularity; eviction removes the most-recently-run instance's private
     keys ("next use most distant in the future" under round-robin);
+  * sharded admission (DESIGN.md S3): with ``shard_fn`` the capacity is
+    per shard and a key counts against every shard it resides on;
   * per-swap cost: incremental bytes / PCIe bandwidth.
 """
 from __future__ import annotations
@@ -70,19 +71,43 @@ class MemoryState:
 
 
 class Scheduler:
-    """Admission + eviction + swap accounting over one device."""
+    """Admission + eviction + swap accounting over one device, or over the
+    shards of a mesh."""
 
     def __init__(self, instances: list, capacity_bytes: int, costs: dict,
-                 merged: bool = True):
+                 merged: bool = True, shard_fn=None, n_shards: int = 1):
         self.instances = {i.instance_id: i for i in instances}
         self.order = (merging_aware_order(instances) if merged
                       else sorted(instances, key=lambda i: i.instance_id))
         self.mem = MemoryState.empty(capacity_bytes)
         self.costs = costs
+        # sharded admission (DESIGN.md S3): with shard_fn (key -> tuple of
+        # resident shards, e.g. ParamStore.resident_shards) capacity_bytes
+        # becomes PER-SHARD — a key counts against every shard it resides on
+        # (replicated trunk on all, private suffix on its home shard), so a
+        # merged group whose total exceeds one device's budget still admits
+        # when each shard's slice fits.
+        self.shard_fn = shard_fn
+        self.n_shards = max(int(n_shards), 1) if shard_fn is not None else 1
         self.stats = {"loads": 0, "loaded_bytes": 0, "evictions": 0}
 
     def _activation_bytes(self, inst: Instance, batch: int) -> int:
         return int(self.costs[inst.model_id].activation_gb(batch) * 1e9)
+
+    def _shards_of(self, key) -> tuple:
+        return self.shard_fn(key) if self.shard_fn is not None else (0,)
+
+    def _bytes_by_shard(self, items) -> dict:
+        """items: iterable of (key, bytes) -> {shard: bytes} under the
+        residency map (replicated keys count on every resident shard)."""
+        out = {s: 0 for s in range(self.n_shards)}
+        for k, b in items:
+            for s in self._shards_of(k):
+                out[s] += b
+        return out
+
+    def resident_bytes_by_shard(self) -> dict:
+        return self._bytes_by_shard(self.mem.resident.items())
 
     def load(self, instance_id: str, batch: int) -> dict:
         """Make ``instance_id`` runnable; returns swap accounting."""
@@ -94,7 +119,12 @@ class Scheduler:
         evicted = []
 
         def fits():
-            return self.mem.used_bytes + need_bytes + act <= self.mem.capacity_bytes
+            if self.shard_fn is None:
+                return self.mem.used_bytes + need_bytes + act <= self.mem.capacity_bytes
+            used = self.resident_bytes_by_shard()
+            need = self._bytes_by_shard(need_keys.items())
+            return all(used[s] + need[s] + act <= self.mem.capacity_bytes
+                       for s in range(self.n_shards))
 
         # Evict most-recently-run first (its next turn is the furthest away
         # under round-robin); never evict keys the incoming instance needs.
@@ -133,6 +163,7 @@ class Scheduler:
         return {
             "loaded_bytes": need_bytes,
             "loaded_keys": list(need_keys),
+            "loaded_bytes_by_shard": self._bytes_by_shard(need_keys.items()),
             "load_ms": 1000.0 * need_bytes / 1e9 / PCIE_GBPS,
             "evicted": evicted,
             "resident_bytes": self.mem.used_bytes,
@@ -182,7 +213,8 @@ class Scheduler:
         """Steady-state incremental load (GB) per instance around the
         round-robin cycle (for the profiler): two full cycles on a copy."""
         out = {}
-        sim = Scheduler(list(self.instances.values()), self.mem.capacity_bytes, self.costs)
+        sim = Scheduler(list(self.instances.values()), self.mem.capacity_bytes, self.costs,
+                        shard_fn=self.shard_fn, n_shards=self.n_shards)
         sim.order = self.order
         for _ in range(2):
             for inst in self.order:

@@ -1553,3 +1553,70 @@ def test_vlm_prefill_and_decode_on_the_card(cuda_device):
     assert int(cg["length"]) == cfg.n_patches + 12
     after = ops.kernel_launches()
     assert after["decode_attention"] - before["decode_attention"] == 2 * cfg.n_layers
+
+
+@pytest.mark.gpu
+def test_shard_local_bank_matmul_is_bitwise_the_unsharded_one(cuda_device):
+    """The stablelm-1.6b head's bank (N = 4 members, K = 2048, F = 100352,
+    bf16) split over the 4 shards of a (2, 4) mesh of the card: four
+    launches at one member each give the bits of the one launch at four."""
+    from repro_torch.distributed.partitioning import MeshPlacement
+    from repro_torch.distributed.sharding import LogicalRules, make_mesh, shard_bank_fn
+
+    rnd = _rnd(cuda_device, "bfloat16", 31)
+    x, scale, w = rnd(8, 2048), rnd(4, 2048), rnd(4, 2048, 100352)
+
+    def head(b, feats):  # bank_head's shape: a per-member scale, then one GEMM
+        return ops.bank_matmul(feats[None] * b["s"][:, None], b["w"])
+
+    mesh = make_mesh((2, 4), ("data", "model"), cuda_device)
+    placement = MeshPlacement(LogicalRules(mesh, {}))
+    bank = {"w": placement.place_bank(w), "s": placement.place_bank(scale)}
+    assert [t.shape[0] for t in bank["w"].shards] == [1] * 4
+    before = dict(ops.route_launches()["bank_matmul"])
+    whole = head({"w": w, "s": scale}, x)
+    mid = dict(ops.route_launches()["bank_matmul"])
+    got = shard_bank_fn(head, mesh, "model")(bank, x)
+    after = ops.route_launches()["bank_matmul"]
+    assert mid["wgmma"] - before["wgmma"] == 1 and after["wgmma"] - mid["wgmma"] == 4
+    assert torch.equal(got, whole)
+
+
+@pytest.mark.gpu
+def test_sharded_decode_of_a_bf16_group_is_bitwise_its_unsharded_decode(cuda_device, tmp_path,
+                                                                        monkeypatch):
+    """``bench.shard_serve`` on the dense adapter's tiny config in bf16, the
+    merged four-member group, on a (2, 4) mesh of the card: tokens and
+    logits bitwise, every gate, and
+    ``bank_matmul`` launched ``n_shards`` times for each launch the
+    unsharded lane makes (graph replays included)."""
+    import dataclasses
+
+    from repro_torch.bench import common
+    from repro_torch.bench import lm_merging as LMB
+    from repro_torch.bench import shard_serve as SSB
+
+    monkeypatch.setattr(common, "ARTIFACTS", str(tmp_path))
+    cfg = dataclasses.replace(LMB.get_adapter("dense").default_config(), dtype="bfloat16")
+    scn = LMB.numpy_scenario(cfg, cuda_device)
+    # the merged group alone: a foreign lm-C drawn on the card may merge too,
+    # and a bank of five would not divide over four shards
+    scn = dataclasses.replace(scn, zoo={m: scn.zoo[m] for m in ("lm-A", "lm-B", "lm-D", "lm-E")})
+    launches = {}
+    last = [ops.kernel_launches()["bank_matmul"]]
+
+    def on_lane(name, eng, stats):
+        now = ops.kernel_launches()["bank_matmul"]
+        launches[name] = (now - last[0], stats["bank_dispatches"],
+                          eng.last_decoder.graphs.replays)
+        last[0] = now
+
+    with torch.no_grad():
+        out = SSB.run(scn, on_lane=on_lane)
+    d = out["derived"]
+    assert all(SSB.gates(d).values()), d
+    assert d["bitwise"] and d["max_logit_diff"] == 0.0, d
+    (plain, plain_dispatches, plain_replays) = launches["unsharded"]
+    (sharded, dispatches, replays) = launches["sharded"]
+    assert dispatches == plain_dispatches > 0 and replays > 0 and plain_replays > 0
+    assert plain > 0 and sharded == SSB.mesh_placement(cuda_device).n_shards * plain
