@@ -81,7 +81,16 @@ device memory still allocated and closes with its seconds):
    decode steps with all 8 slots live, timed and under ``torch.profiler``
    (``_decode_profile``).  For stablelm, ``stablelm_timeshare_decode_speedup``
    then sets its tokens a second over the per-request lane's, beside the
-   JAX package's own gate of 2 (reported, not asserted);
+   JAX package's own gate of 2 (reported, not asserted), and
+   ``stablelm_ckpt`` puts the merged group through the checkpoint
+   manager: an unmerged copy of the same members and the merged store
+   ``save_store``d (``keep=1``: the unmerged one GC'd), file bytes beside
+   ``resident_bytes()`` (merged within 1%), save and restore seconds, the
+   merged store restored onto the card and a fresh engine built on it;
+   the same 24 requests served and 6 stream-decoded (chunked prefill,
+   paged) through the engine before the save and the restored one, rows,
+   tokens and logits bitwise, the four LM kernels launched in the
+   restored lanes;
 8. GEMEL's planning step on a full-width stablelm-1.6b zoo cut to 6 of
    its 24 layers (``PLAN_LAYERS``; ``stablelm_plan_cloud`` /
    ``stablelm_plan``; phase 9c measures the transport at the whole
@@ -199,6 +208,19 @@ device memory still allocated and closes with its seconds):
    tree), and ``bench.lm_merging.pod_sizing``'s rows (host, meta
    tensors).  Gate: flash, decode, mamba_scan and rg_lru_scan launched;
    the kernel checks of phase 3 include this phase's head layouts;
+9f. the training tier (``seamless_train``): ``Trainer.fit`` on
+   seamless-m4t-medium at full width, depth cut to 2 + 2 of its 12 + 12
+   layers (printed), bf16: AdamW under ``warmup_cosine``, 2
+   microbatches, int8 gradient compression with error feedback, the
+   heartbeat and straggler monitors, batches of ``launch.train.batches``
+   (4 x 128 frames and 128 tokens).  6 steps straight, then 3 with a
+   checkpoint, a "crash" and a fresh Trainer resuming to 6: params,
+   moments, feedback and history bitwise the straight run's, no kernel
+   launched (the encdec loss calls none); per-step loss, grad norm and
+   ms, state and checkpoint bytes, save and restore seconds.  Then
+   ``launch.train.main`` on ``cuda``: seamless-m4t-medium's smoke config
+   with a checkpoint directory runs; stablelm-1.6b's raises the kernels'
+   no-backward error before its first step (nothing falls back);
 10. joint retraining on the card (``small_cnn_retrain``):
    ``examples/quickstart.py``'s two pretrained small CNNs through
    ``IncrementalMerger`` with ``MergeTrainer``; each attempt's shared
@@ -3036,6 +3058,262 @@ def arch_families_phase(torch) -> tuple:
     return dict(launches), {k: dict(v) for k, v in routes.items()}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the training tier (checkpoints, Trainer, the train launcher)
+# ---------------------------------------------------------------------------
+
+
+def restored_lanes(torch, adapter, cfg, eng, store) -> tuple:
+    """The same 24 requests served, then 6 stream-decoded (chunked prefill,
+    paged; 2 a member, 16 new tokens), through ``eng`` and through a fresh
+    engine on ``store``.  Returns (rows and tokens and logits of both
+    lanes, the fresh engine's kernel launches and routes)."""
+    from repro_torch.kernels import ops
+
+    lanes = []
+    for name, engine in (("before", eng), ("restored", None)):
+        if engine is None:
+            engine = make_engine(adapter, cfg, store, LM_MIDS, int(16e9))
+            ops.reset_kernel_launches()
+        _, reqs = lm_requests(torch, cfg, LM_MIDS, seed=300)
+        for r in reqs:
+            engine.submit(r)
+        stats = engine.serve(horizon_s=600.0, warmup=reqs[0].payload)
+        assert stats["completed"] == len(reqs), stats
+        res = {id(c.request): c.result for c in engine.completions}
+        dreqs = decode_requests(cfg, 2, 301, 16)
+        dstats = engine.serve_decode(dreqs, horizon_s=600.0, record_logits=True, **DECODE_KW)
+        assert dstats["completed"] == len(dreqs) and dstats["pool_identity_ok"], dstats
+        done = {id(c.request): c for c in engine.last_decoder.completions}
+        lanes.append(dict(rows=[res[id(r)] for r in reqs],
+                          tokens=[done[id(r)].tokens for r in dreqs],
+                          logits=[done[id(r)].logits for r in dreqs]))
+    return lanes, ops.kernel_launches(), ops.route_launches()
+
+
+def stablelm_ckpt_phase(torch, adapter, cfg, store, eng) -> tuple:
+    """Phase 6's merged full-width stablelm-1.6b group through the
+    checkpoint manager (``stablelm_ckpt``): an unmerged copy of the same
+    members (each member's trees, one buffer a key) and the merged store
+    ``save_store``d into one directory with ``keep=1`` (the unmerged one
+    GC'd), the merged one restored onto the card, a fresh engine built on
+    it; the same requests served and stream-decoded through the engine
+    before the save and the fresh one.  Gates: bindings and buffers
+    bitwise, served rows, decode tokens and logits bitwise (max difference
+    0.0), bank, flash, gather and decode-attention launched in the restored
+    lanes, the merged file within 1% of ``resident_bytes()``.  The restore
+    reads a file just written, so its read is warm in the page cache.
+    Returns the restored lanes' (kernel launches, routes)."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.core import ParamStore
+
+    t_phase = start_phase(torch, "stablelm_ckpt")
+    directory = tempfile.mkdtemp(prefix="stablelm_ckpt_")
+    try:
+        free = shutil.disk_usage(directory).free
+        mgr = CheckpointManager(directory, keep=1)
+        unmerged = ParamStore.from_models({m: store.materialize(m) for m in LM_MIDS})
+        seconds = {}
+        for step, name, s in ((1, "unmerged", unmerged), (2, "merged", store)):
+            t0 = time.perf_counter()
+            mgr.save_store(s, step=step)
+            seconds[f"save_{name}_s"] = time.perf_counter() - t0
+            seconds[f"{name}_file_bytes"] = os.path.getsize(mgr._path(step))
+            seconds[f"{name}_resident_bytes"] = s.resident_bytes()
+        del unmerged
+        kept = mgr.all_steps()
+        assert kept == [2] and mgr.latest_step() == 2, kept
+        t0 = time.perf_counter()
+        restored, extra = mgr.restore_store(device="cuda")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        assert extra is None and restored.bindings == store.bindings
+        assert restored.resident_bytes() == store.resident_bytes()
+        assert restored.buffers.keys() == store.buffers.keys()
+        assert all(torch.equal(restored.buffers[k], v) for k, v in store.buffers.items())
+        merged_ratio = seconds["merged_file_bytes"] / seconds["merged_resident_bytes"]
+        assert abs(merged_ratio - 1) < 0.01, seconds
+        (before, after), launches, routes = restored_lanes(torch, adapter, cfg, eng, restored)
+        worst = 0.0
+        for key in ("rows", "tokens", "logits"):
+            for a, b in zip(before[key], after[key]):
+                if key == "rows":
+                    worst = max(worst, (a.float() - b.float()).abs().max().item())
+                    assert torch.equal(a, b), key
+                elif key == "logits":
+                    worst = max(worst, max(float(abs(x - y).max()) for x, y in zip(a, b)))
+                    assert all((x == y).all() for x, y in zip(a, b)), key
+                else:
+                    assert list(a) == list(b), key
+        for name in ("bank_matmul", "flash_attention", "page_gather", "decode_attention"):
+            assert launches[name] > 0, launches
+        tensor_core_routes_only(routes)
+        emit("stablelm_ckpt", config=cfg.name, layers=cfg.n_layers, disk_free_bytes=free,
+             **seconds, merged_file_over_resident=merged_ratio,
+             merged_over_unmerged_file=seconds["merged_file_bytes"]
+             / seconds["unmerged_file_bytes"],
+             restore_s=restore_s, restore_read="warm (file just written)", keep=1,
+             all_steps_after_gc=kept, served_rows=len(before["rows"]),
+             decoded_requests=len(before["tokens"]), max_abs_diff_restored_vs_before=worst,
+             launches=launches, route_launches=routes,
+             seconds=time.perf_counter() - t_phase)
+        del restored
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    return launches, routes
+
+
+# seamless_train: seamless-m4t-medium's widths whole, depth cut to 2 + 2 of
+# its 12 + 12 layers; 4 sequences of 128 frames and 128 target tokens a
+# step, two microbatches; 6 steps straight, or 3, a crash, and 3 resumed
+SEAMLESS_LAYERS = 2
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, CRASH_AT = 4, 256, 6, 3
+
+
+class StepLog:
+    """A Trainer monitor that keeps every step's metrics."""
+
+    def __init__(self):
+        self.steps = []
+
+    def tick(self, step: int, metrics: dict) -> None:
+        self.steps.append(dict(step=step, loss=metrics["loss"], grad_norm=metrics["grad_norm"],
+                               step_ms=metrics["step_time"] * 1e3))
+
+
+def seamless_train_phase(torch) -> None:
+    """``Trainer.fit`` at full seamless-m4t-medium width
+    (``seamless_train``): AdamW under ``warmup_cosine``, 2 microbatches,
+    int8 gradient compression with error feedback, the heartbeat and
+    straggler monitors; batches from ``launch.train.batches`` (LMStream
+    tokens, frame embeddings from a generator seeded by the step, on the
+    card).  6 steps straight, then 3 with a checkpoint at step 3, a
+    "crash", and a fresh Trainer resuming from it to step 6 on the batches
+    from step 3 on.  Gates: the resumed params, moments, error feedback and
+    history equal the straight run's bitwise; no kernel launched (the
+    encdec loss calls none).  Then ``launch.train.main`` on ``cuda``:
+    seamless-m4t-medium's smoke config with a checkpoint directory, 2
+    microbatches and compression, which runs; stablelm-1.6b's, which must
+    raise the kernels' no-backward error before its first step."""
+    import itertools
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.configs import seamless_m4t_medium
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import encdec
+    from repro_torch.runtime.monitors import HeartbeatMonitor, StragglerMonitor
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.schedule import warmup_cosine
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.utils.tree import flatten_paths, leaf_bytes
+
+    t_phase = start_phase(torch, "seamless_train")
+    full = seamless_m4t_medium.full_config()
+    cfg = dataclasses.replace(full, n_enc_layers=SEAMLESS_LAYERS, n_dec_layers=SEAMLESS_LAYERS)
+    params = encdec.init(cfg, seed=0, device="cuda")
+
+    @dataclasses.dataclass
+    class Timed(CheckpointManager):
+        """The manager with its last save's and restore's seconds."""
+
+        timings: dict = dataclasses.field(default_factory=dict)
+
+        def save(self, state, step):
+            t0 = time.perf_counter()
+            out = super().save(state, step)
+            self.timings["save_s"] = time.perf_counter() - t0
+            return out
+
+        def restore(self, step, device=None, shardings=None):
+            t0 = time.perf_counter()
+            out = super().restore(step, device, shardings)
+            torch.cuda.synchronize()
+            self.timings["restore_s"] = time.perf_counter() - t0
+            return out
+
+    def fit(steps: int, start: int, mgr=None, ckpt_every: int = CRASH_AT):
+        log = StepLog()
+        data = itertools.islice(
+            launch_train.batches(cfg, "encdec", TRAIN_BATCH, TRAIN_SEQ, torch.device("cuda")),
+            start, None)
+        tr = Trainer(lambda p, b: encdec.loss_fn(cfg, p, b),
+                     AdamW(lr=warmup_cosine(3e-4, 2, TRAIN_STEPS)), microbatches=2,
+                     compress_grads=True, ckpt_manager=mgr, ckpt_every=ckpt_every,
+                     monitors=(HeartbeatMonitor(1), StragglerMonitor(), log))
+        out = tr.fit(params, data, steps, log_every=1)
+        torch.cuda.synchronize()
+        return out, log.steps
+
+    directory = tempfile.mkdtemp(prefix="seamless_train_")
+    try:
+        ops.reset_kernel_launches()
+        torch.cuda.reset_peak_memory_stats()
+        straight, straight_log = fit(TRAIN_STEPS, 0)
+        peak = torch.cuda.max_memory_allocated()
+        mgr = Timed(directory)
+        fit(CRASH_AT, 0, mgr)  # the crash: nothing runs after step 3
+        ckpt_bytes = os.path.getsize(mgr._path(CRASH_AT))
+        # a fresh Trainer and manager; it restores, and saves no more
+        resumer = Timed(directory)
+        resumed, resumed_log = fit(TRAIN_STEPS, CRASH_AT, resumer, ckpt_every=TRAIN_STEPS + 1)
+        assert resumer.all_steps() == [CRASH_AT], resumer.all_steps()
+        assert [h["step"] for h in resumed["history"]] == list(range(CRASH_AT, TRAIN_STEPS))
+        assert resumed["history"] == straight["history"][CRASH_AT:], \
+            (resumed["history"], straight["history"])
+        a, b = straight["state"], resumed["state"]
+        assert a["step"] == b["step"] == TRAIN_STEPS and a["opt"].step == b["opt"].step
+        mismatched = [f"{tree}/{k}" for tree, (ta, tb) in
+                      {"params": (a["params"], b["params"]), "mu": (a["opt"].mu, b["opt"].mu),
+                       "nu": (a["opt"].nu, b["opt"].nu), "err": (a["err"], b["err"])}.items()
+                      for k, v in flatten_paths(ta).items()
+                      if not torch.equal(v, flatten_paths(tb)[k])]
+        assert not mismatched, mismatched[:8]
+        assert not any(ops.kernel_launches().values()), ops.kernel_launches()
+        state_bytes = sum(leaf_bytes(v) for tree in (a["params"], a["opt"].mu, a["opt"].nu,
+                                                     a["err"])
+                          for v in flatten_paths(tree).values())
+        emit("seamless_train", config=cfg.name,
+             layers=dict(encoder=cfg.n_enc_layers, decoder=cfg.n_dec_layers),
+             published_layers=dict(encoder=full.n_enc_layers, decoder=full.n_dec_layers),
+             d_model=cfg.d_model, vocab=cfg.vocab_size, dtype=cfg.dtype,
+             batch=TRAIN_BATCH, frames=TRAIN_SEQ // 2, target_tokens=TRAIN_SEQ // 2,
+             microbatches=2, compress_grads=True, steps=straight_log, resumed_steps=resumed_log,
+             peak_memory_bytes_straight=peak, state_bytes=state_bytes, checkpoint_bytes=ckpt_bytes,
+             save_s=mgr.timings["save_s"], restore_s=resumer.timings["restore_s"],
+             restore_read="warm (file just written)", resume_bitwise=True,
+             kernel_launches=dict(ops.kernel_launches()))
+        del straight, resumed, a, b
+        shutil.rmtree(directory)
+        os.makedirs(directory)
+
+        t0 = time.perf_counter()
+        out = launch_train.main(["--arch", "seamless-m4t-medium", "--device", "cuda",
+                                 "--steps", "6", "--ckpt-every", "3", "--microbatches", "2",
+                                 "--compress-grads", "--ckpt-dir", directory])
+        assert out["state"]["step"] == 6 and CheckpointManager(directory).all_steps() == [3, 6]
+        launcher_s = time.perf_counter() - t0
+        before = dict(ops.kernel_launches())
+        try:
+            launch_train.main(["--arch", "stablelm-1.6b", "--device", "cuda", "--steps", "2"])
+        except RuntimeError as e:
+            refusal = str(e)
+        else:
+            raise AssertionError("launch.train trained stablelm-1.6b through the kernels")
+        assert "no backward" in refusal and ops.kernel_launches() == before, refusal
+        emit("seamless_train_launcher", smoke_history=out["history"], launcher_s=launcher_s,
+             stablelm_refused=refusal, seconds=time.perf_counter() - t_phase)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+
+
 def full_precision_matmuls(torch) -> None:
     """float32 matmuls without TF32, bf16 ones with float32 reductions."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3140,6 +3418,8 @@ def main() -> int:
                  per_request_tokens_per_s=ts_decode["tokens_per_s"],
                  decode_speedup=dstats["tokens_per_s"] / ts_decode["tokens_per_s"],
                  reference_gate=">= 2.0", asserted=False)
+            # the merged group through the checkpoint manager and back
+            add(*stablelm_ckpt_phase(torch, adapter, cfg, store, eng))
         del eng, store  # the next family's start_phase frees this one's store
     add(*stablelm_plan_phase(torch, dataclasses.replace(stablelm_1_6b.full_config(),
                                                         n_layers=PLAN_LAYERS), int(16e9)))
@@ -3165,6 +3445,7 @@ def main() -> int:
     add(*mixed_zoo_phase(torch))
     add(*mixed_zoo_full_phase(torch))
     add(*arch_families_phase(torch))
+    seamless_train_phase(torch)
     t0 = start_phase(torch, "small_cnn_retrain")
     small_cnn_retrain_phase(torch)
     emit("phase_end", name="small_cnn_retrain", seconds=time.perf_counter() - t0)

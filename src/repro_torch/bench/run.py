@@ -7,9 +7,9 @@
 ``cuda``) goes to every bench that touches a device; the paper's figure
 and table benches other than fig7 and fig14's plan-wire lane are host
 arithmetic.  Each bench writes ``artifacts/torch/<name>.json``.  The
-reference's ``roofline`` and ``shard_serve`` are not ported yet; its
-``mixed_zoo``, which ``benchmarks/run.py`` does not list either, runs
-as ``python -m repro_torch.bench.mixed_zoo``.
+reference's ``roofline`` is not ported yet (it goes before
+``shard_serve``); its ``mixed_zoo``, which ``benchmarks/run.py`` does not
+list either, runs as ``python -m repro_torch.bench.mixed_zoo``.
 """
 from __future__ import annotations
 
@@ -40,6 +40,7 @@ BENCHES = (
     ("drift_adapt", True),
     ("overload", True),
     ("ablation_ordering", False),
+    ("shard_serve", True),
 )
 
 

@@ -1,1 +1,2 @@
-"""Checkpoint-side placement (the port of ``repro.ckpt``): reshard-on-load."""
+"""Checkpoints (the port of ``repro.ckpt``): the dedup-aware
+``CheckpointManager`` and reshard-on-load."""

@@ -1,27 +1,34 @@
-"""Reshard-on-load: place host parameters or a live ParamStore onto a
-*different* mesh (the port of ``repro.ckpt.reshard``).
+"""Reshard-on-load: place a host train state, host parameters or a live
+ParamStore onto a *different* mesh (the port of ``repro.ckpt.reshard``).
 
-Resharding is placement only: compute the specs from the partitioning rules
-on the new mesh and place each leaf (``distributed.partitioning.put``).
+A checkpoint holds host arrays (``ckpt.manager``), so resharding is
+placement only: compute the specs from the partitioning rules on the new
+mesh and place each leaf (``distributed.partitioning.put``).  Used by the
+failure-recovery path (``runtime.monitors.FailurePolicy``).
 """
 from __future__ import annotations
 
 from typing import Any, Optional
 
-from repro_torch.distributed.partitioning import (
-    MeshPlacement, NamedSharding, _guarded, _map_with_path, put,
-)
+from repro_torch.distributed.elastic import reshard_tree
+from repro_torch.distributed.partitioning import MeshPlacement, place_tree
 from repro_torch.distributed.sharding import LogicalRules
+from repro_torch.train.trainer import state_shardings
+
+
+def train_state_shardings(state: Any, rules: LogicalRules):
+    return state_shardings(state, rules)
+
+
+def reshard_state(state: Any, rules: LogicalRules):
+    """Place a (host or device) train state onto the mesh in ``rules``."""
+    return place_tree(state, train_state_shardings(state, rules))
 
 
 def reshard_params(params: Any, rules: LogicalRules):
     """``params`` (tensors or host arrays) placed under their
     ``param_specs`` on ``rules``' mesh, the tree's structure kept."""
-    def one(path, x):
-        spec = _guarded(rules, path, tuple(getattr(x, "shape", ())))
-        return put(NamedSharding(rules.mesh, spec), x)
-
-    return _map_with_path(one, params)
+    return reshard_tree(params, rules)
 
 
 def reshard_store(store: Any, rules: Optional[LogicalRules], bank_axis: str = "model"):

@@ -1,5 +1,4 @@
-"""Deterministic synthetic data (the port of ``repro.data.synthetic``; the
-sharded iterator waits for the sharded-training slice).
+"""Deterministic synthetic data (the port of ``repro.data.synthetic``).
 
 ``batch_at(step)`` is a pure function of (seed, step), so a restart
 reproduces the exact stream.  Batches are tensors on the stream's
@@ -117,3 +116,14 @@ class VisionStream:
 
     def epoch(self, epoch_idx: int, n_batches: int = 4) -> list:
         return [self.batch_at(epoch_idx * n_batches + i) for i in range(n_batches)]
+
+
+def sharded_iter(stream, rules=None):
+    """Wrap a stream so each batch is placed with the 'batch' sharding."""
+    from repro_torch.distributed.partitioning import place_tree
+    from repro_torch.train.trainer import batch_shardings
+
+    for b in stream:
+        if rules is not None:
+            b = place_tree(b, batch_shardings(b, rules))
+        yield b

@@ -1,11 +1,19 @@
-"""Elastic scaling: the mesh a job (or a plan-receiving edge box) runs on,
-from the devices it has (the port of ``repro.distributed.elastic``'s mesh
-arithmetic).  Host arithmetic only: the placement it feeds is
-``ckpt.reshard.reshard_store``."""
+"""Elastic scaling: remap a training or serving job onto a different mesh
+(the port of ``repro.distributed.elastic``).
+
+On node failure (or scale-up) the job restarts on a new mesh shape: params
+and optimizer state are resharded on load.  The checkpoint stores plain
+host arrays (``ckpt.manager``); :func:`plan_for_devices` picks the new mesh
+from the surviving devices and :func:`reshard_tree` places a tree on it.
+No in-flight migration is attempted.
+"""
 from __future__ import annotations
 
 import dataclasses
 import math
+
+from repro_torch.distributed.partitioning import param_shardings, place_tree
+from repro_torch.distributed.sharding import LogicalRules
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,3 +40,9 @@ def plan_for_devices(n_devices: int, model_parallel: int, multi_pod_size: int = 
         pods = data // multi_pod_size
         return MeshPlan((pods, multi_pod_size, model_parallel), ("pod", "data", "model"))
     return MeshPlan((data, model_parallel), ("data", "model"))
+
+
+def reshard_tree(tree, rules: LogicalRules):
+    """Place a host-resident (or device) param tree onto the mesh described
+    by ``rules``, leaf by leaf under its ``param_specs``."""
+    return place_tree(tree, param_shardings(tree, rules))

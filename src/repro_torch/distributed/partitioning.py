@@ -34,6 +34,7 @@ import torch
 from repro_torch.distributed.sharding import (
     BankShards, LogicalRules, Mesh, NamedSharding, P, _axis_extent,
 )
+from repro_torch.utils.tree import map_tree
 
 # (path-suffix pattern, logical axes for the *trailing* dims). Leading dims
 # not covered by the pattern (e.g. the stacked-layer axis, expert axis in a
@@ -146,6 +147,14 @@ def param_specs(params, rules: Optional[LogicalRules]):
     return _map_with_path(one, params)
 
 
+def param_shardings(params, rules: LogicalRules):
+    """:func:`param_specs` on ``rules``' mesh as a tree of NamedShardings."""
+    def one(path, leaf):
+        return NamedSharding(rules.mesh, _guarded(rules, path, tuple(getattr(leaf, "shape", ()))))
+
+    return _map_with_path(one, params)
+
+
 _REPLICAS: dict = {}  # id(primary tensor) -> its copies on the other devices
 
 
@@ -171,6 +180,14 @@ def put(sharding: NamedSharding, x) -> torch.Tensor:
         _REPLICAS[id(out)] = tuple(out.to(d) for d in others)
         weakref.finalize(out, _REPLICAS.pop, id(out), None)
     return out
+
+
+def place_tree(tree, shardings):
+    """:func:`put` every tensor or host-array leaf of ``tree`` under the
+    sharding at its position in ``shardings`` (a tree mirroring ``tree``);
+    other leaves (a step counter, binding strings) pass through."""
+    return map_tree(lambda x, s: put(s, x) if isinstance(x, (torch.Tensor, np.ndarray)) else x,
+                    tree, shardings)
 
 
 class MeshPlacement:

@@ -1,6 +1,11 @@
-"""Clock-injected runtime monitors (the port of ``repro.runtime.monitors``;
-pure Python, the JAX package's arithmetic).
+"""Runtime health: heartbeats, stragglers, failure recovery, and the
+queue and cadence monitors of the serving tiers (the port of
+``repro.runtime.monitors``; pure Python, the JAX package's arithmetic).
 
+* :class:`HeartbeatMonitor` / :class:`StragglerMonitor` — the trainer's
+  monitors (``Trainer(monitors=...)`` ticks them every step);
+* :class:`FailurePolicy` — on worker loss, a new mesh from the survivors,
+  the latest checkpoint restored and resharded onto it;
 * :class:`SampleCadence` — the periodic trigger of the drift-sampling loop
   (§5.1 step 4) that ``serving.lifecycle.LifecycleController`` asks between
   serve passes;
@@ -8,7 +13,8 @@ pure Python, the JAX package's arithmetic).
   the ingestion front end's bounded admission queues.
 
 Every monitor takes its clock as an argument, so tests drive it
-deterministically.
+deterministically; the policies run against an injected clock and
+topology, the interfaces a real launcher would drive.
 """
 from __future__ import annotations
 
@@ -16,6 +22,45 @@ import dataclasses
 import time
 from collections import deque
 from typing import Callable, Optional
+
+
+@dataclasses.dataclass
+class HeartbeatMonitor:
+    """Workers report per-step heartbeats; silence > timeout marks them dead.
+    ``on_failure(worker_id)`` typically triggers the elastic re-mesh path."""
+
+    n_workers: int
+    timeout_s: float = 60.0
+    clock: Callable[[], float] = time.monotonic
+    on_failure: Optional[Callable] = None
+
+    def __post_init__(self):
+        now = self.clock()
+        self.last_seen = {w: now for w in range(self.n_workers)}
+        self.dead: set = set()
+
+    def beat(self, worker_id: int):
+        if worker_id in self.dead:
+            self.dead.discard(worker_id)  # rejoin after restart
+        self.last_seen[worker_id] = self.clock()
+
+    def check(self) -> set:
+        now = self.clock()
+        newly = {w for w, t in self.last_seen.items()
+                 if w not in self.dead and now - t > self.timeout_s}
+        for w in newly:
+            self.dead.add(w)
+            if self.on_failure:
+                self.on_failure(w)
+        return newly
+
+    @property
+    def alive(self) -> int:
+        return self.n_workers - len(self.dead)
+
+    def tick(self, step: int, metrics: dict):  # Trainer monitor API
+        self.beat(0)
+        self.check()
 
 
 @dataclasses.dataclass
@@ -40,6 +85,45 @@ class SampleCadence:
         now = self.clock()
         if self._next <= now:
             self._next = now + self.period_s
+
+
+STRAGGLER_WINDOW = 32  # step times in the rolling median
+
+
+@dataclasses.dataclass
+class StragglerMonitor:
+    """Flags steps slower than ``threshold`` x the rolling-median step time.
+
+    Mitigation policy at scale: (1) within-pod stragglers are absorbed by the
+    synchronous collective (no action, logged); (2) a persistently slow pod
+    (>= ``evict_after`` consecutive flags) is evicted via the same elastic
+    path as a failure — better to lose 1/N compute than run at its speed.
+    """
+
+    threshold: float = 2.0
+    evict_after: int = 5
+    on_evict: Optional[Callable] = None
+
+    def __post_init__(self):
+        self.times: deque = deque(maxlen=STRAGGLER_WINDOW)
+        self.flags = 0
+        self.events: list = []
+
+    def tick(self, step: int, metrics: dict):
+        dt = metrics.get("step_time")
+        if dt is None:
+            return
+        if len(self.times) >= 8:
+            med = sorted(self.times)[len(self.times) // 2]
+            if dt > self.threshold * med:
+                self.flags += 1
+                self.events.append({"step": step, "time": dt, "median": med})
+                if self.flags >= self.evict_after and self.on_evict:
+                    self.on_evict(step)
+                    self.flags = 0
+            else:
+                self.flags = 0
+        self.times.append(dt)
 
 
 @dataclasses.dataclass
@@ -119,3 +203,37 @@ class ShedRateMonitor:
         dq = self._deltas.get(camera, ())
         d_off = sum(d for d, _ in dq)
         return sum(s for _, s in dq) / max(d_off, 1)
+
+
+@dataclasses.dataclass
+class FailurePolicy:
+    """Orchestrates recovery: on worker loss, choose a new mesh from the
+    survivors (``distributed.elastic.plan_for_devices``), restore the latest
+    checkpoint with reshard-on-load, and resume.  ``simulate`` drives the
+    whole path without the lost hardware."""
+
+    total_devices: int
+    model_parallel: int
+    ckpt_manager: object = None
+    pod_size: int = 0
+
+    def recover_plan(self, failed_devices: int):
+        from repro_torch.distributed.elastic import plan_for_devices
+
+        survivors = self.total_devices - failed_devices
+        # keep whole multiples of the model-parallel degree
+        usable = (survivors // self.model_parallel) * self.model_parallel
+        return plan_for_devices(usable, self.model_parallel, self.pod_size)
+
+    def simulate(self, state, rules_factory, failed_devices: int):
+        """``rules_factory(plan) -> LogicalRules`` for the surviving mesh.
+        Returns (the state resharded onto it, the plan)."""
+        from repro_torch.ckpt.reshard import reshard_state
+
+        plan = self.recover_plan(failed_devices)
+        rules = rules_factory(plan)
+        if self.ckpt_manager is not None:
+            restored = self.ckpt_manager.restore_latest(device=rules.mesh.primary)
+            if restored is not None:
+                state = restored
+        return reshard_state(state, rules), plan

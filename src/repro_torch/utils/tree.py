@@ -63,6 +63,21 @@ def flatten_paths(tree: Any, prefix: str = "") -> dict:
     return out
 
 
+def map_tree(fn, tree: Any, *rest: Any) -> Any:
+    """``fn(leaf, *same_position_in_rest)`` over a tree, its structure kept:
+    dicts, lists, tuples and NamedTuples are nodes (``rest`` trees mirror
+    ``tree``'s nodes; their leaves may be anything), ``None`` stays
+    ``None``, anything else is a leaf."""
+    if isinstance(tree, Mapping):
+        return {k: map_tree(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        kids = [map_tree(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+        return type(tree)(*kids) if hasattr(tree, "_fields") else type(tree)(kids)
+    if tree is None:
+        return None
+    return fn(tree, *rest)
+
+
 def unflatten_paths(flat: Mapping[str, Any]) -> dict:
     """Inverse of :func:`flatten_paths` (dict nodes only)."""
     root: dict = {}

@@ -1620,3 +1620,89 @@ def test_sharded_decode_of_a_bf16_group_is_bitwise_its_unsharded_decode(cuda_dev
     (sharded, dispatches, replays) = launches["sharded"]
     assert dispatches == plain_dispatches > 0 and replays > 0 and plain_replays > 0
     assert plain > 0 and sharded == SSB.mesh_placement(cuda_device).n_shards * plain
+
+
+@pytest.mark.gpu
+def test_bf16_cuda_state_round_trips_through_the_checkpoint_bitwise(cuda_device, tmp_path):
+    """A bf16 train state on the card (params, float32 moments and error
+    feedback) saved and restored onto the card: every leaf bitwise, bf16
+    written as its uint16 bits."""
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.trainer import init_state
+    from repro_torch.utils.tree import flatten_paths
+
+    rnd = _rnd(cuda_device, "bfloat16", 41)
+    params = {"embed": {"table": rnd(512, 64)}, "blocks": [{"w": rnd(64, 64)}, {"w": rnd(64, 8)}]}
+    state = init_state(params, AdamW(), compress_grads=True)
+    state["err"] = {k: torch.randn_like(v) for k, v in state["err"].items()}
+    state["step"] = 11
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(state, step=11)
+    got = mgr.restore_latest(device=cuda_device)
+    assert got["step"] == 11 and got["opt"].step == 0
+    for a, b in [(state["params"], got["params"]), (state["err"], got["err"]),
+                 (state["opt"].mu, got["opt"].mu)]:
+        fa, fb = flatten_paths(a), flatten_paths(b)
+        assert fa.keys() == fb.keys()
+        for k in fa:
+            assert fb[k].is_cuda and fb[k].dtype == fa[k].dtype
+            assert torch.equal(fa[k].view(torch.int16) if fa[k].dtype == torch.bfloat16
+                               else fa[k], fb[k].view(torch.int16)
+                               if fb[k].dtype == torch.bfloat16 else fb[k]), k
+
+
+@pytest.mark.gpu
+def test_trainer_on_a_dense_loss_raises_on_the_card(cuda_device):
+    """The dense trunk's attention is the CUDA kernel, which has no
+    backward: the first step raises, and nothing falls back."""
+    from repro_torch.configs import stablelm_1_6b
+    from repro_torch.data.synthetic import LMStream
+    from repro_torch.models import transformer
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.trainer import Trainer
+
+    cfg = stablelm_1_6b.smoke_config()
+    params = transformer.init(cfg, seed=0, device=cuda_device)
+    tr = Trainer(lambda p, b: transformer.loss_fn(cfg, p, b), AdamW())
+    before = ops.kernel_launches()["flash_attention"]
+    with pytest.raises(RuntimeError, match="no backward"):
+        tr.fit(params, iter(LMStream(cfg.vocab_size, 2, 16, device=cuda_device)), 2)
+    assert ops.kernel_launches()["flash_attention"] == before
+
+
+@pytest.mark.gpu
+def test_encdec_trainer_resumes_bitwise_on_the_card(cuda_device, tmp_path):
+    """seamless-m4t-medium's smoke config in bf16 (its loss calls no
+    kernel): 4 steps straight equal 2 steps, a checkpoint and a fresh
+    Trainer resuming to 4, bitwise, with microbatches and int8 feedback."""
+    import dataclasses
+    import itertools
+
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.configs import seamless_m4t_medium
+    from repro_torch.launch.train import batches
+    from repro_torch.models import encdec
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.schedule import warmup_cosine
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.utils.tree import flatten_paths
+
+    cfg = dataclasses.replace(seamless_m4t_medium.smoke_config(), dtype="bfloat16")
+
+    def fit(steps, start, mgr=None):
+        data = itertools.islice(batches(cfg, "encdec", 4, 32, cuda_device), start, None)
+        tr = Trainer(lambda p, b: encdec.loss_fn(cfg, p, b),
+                     AdamW(lr=warmup_cosine(1e-3, 2, 4)), microbatches=2, compress_grads=True,
+                     ckpt_manager=mgr, ckpt_every=2)
+        return tr.fit(encdec.init(cfg, seed=0, device=cuda_device), data, steps, log_every=1)
+
+    straight = fit(4, 0)
+    fit(2, 0, CheckpointManager(str(tmp_path)))
+    resumed = fit(4, 2, CheckpointManager(str(tmp_path)))
+    assert resumed["history"] == straight["history"][2:]
+    for tree in ("params", "err"):
+        a, b = flatten_paths(straight["state"][tree]), flatten_paths(resumed["state"][tree])
+        assert all(torch.equal(a[k], b[k]) for k in a), tree
+    assert all(torch.equal(straight["state"]["opt"].nu[k], v)
+               for k, v in resumed["state"]["opt"].nu.items())
