@@ -225,7 +225,22 @@ device memory still allocated and closes with its seconds):
    ``examples/quickstart.py``'s two pretrained small CNNs through
    ``IncrementalMerger`` with ``MergeTrainer``; each attempt's shared
    gradients against the members' separate ones, and its joint loss
-   before and after retraining.
+   before and after retraining;
+11. the four serving examples of ``repro_torch.examples`` on the card at
+   their own sizes (``examples``): merge_and_serve's 40 engine requests
+   and cloud_edge_plan's hot swap (one epoch bump, 9 queued requests
+   kept), their served rows against direct forwards, drift_and_revert's
+   own draws and a drift made certain (B breached and reverted),
+   quickstart's pretraining and merge; ``bank_matmul`` launched;
+12. the dry run (``dryrun``): ``launch.dryrun`` in this process over
+   every architecture's ``decode_32k`` and stablelm-1.6b's ``train_4k`` /
+   ``prefill_32k`` (meta tensors), then ``bench.roofline.run()`` over
+   them; then the count against the card (``dryrun_card``): full-width
+   stablelm-1.6b's prefill of 1 x 32768 tokens and decode of 4 rows at a
+   full 32768-slot cache traced and run for real through the kernels:
+   argument bytes exact, outputs' shapes and dtypes equal, each warm time
+   (CUDA events) at least the trace's roofline bound, the share printed
+   with a profiled call's device time and idle share.
 
 Each family's store, engine and decoder are released before the next
 family's phase.  Then the ``{"kernels": [...]}`` line (each kernel's
@@ -371,6 +386,7 @@ def nbytes(*tensors) -> int:
 
 def check_bank(torch, case: str, N, M, K, F, dtype, broadcast, bias, reps, gen):
     from repro_torch.kernels import bank_matmul as kmod
+    from repro_torch.kernels import ops as kops
     from repro_torch.kernels.ref import bank_matmul_ref
 
     dt = getattr(torch, dtype)
@@ -398,8 +414,8 @@ def check_bank(torch, case: str, N, M, K, F, dtype, broadcast, bias, reps, gen):
     else:  # bf16 in, f32 out in one call; with a bias there is no single call
         lib = None if bias else (lambda: torch.bmm(xb, w, out_dtype=torch.float32))
     library_ms = cuda_ms(torch, lib, reps) if lib is not None else None
-    ops = 2.0 * N * M * K * F + (N * M * F if bias else 0)
-    bound_ms, bound_by = bound(nbytes(x, w, b, out), ops, dtype)
+    cost = kops.bank_matmul_cost(x, w, b)
+    bound_ms, bound_by = bound(cost.bytes, cost.flops, dtype)
     row = dict(kernel="bank_matmul", case=case, route=route, shape=dict(N=N, M=M, K=K, F=F),
                dtype=dtype, broadcast=broadcast, bias=bias, row_stable_bitwise=route == "wgmma",
                max_abs_err=err,
@@ -413,6 +429,7 @@ def check_flash(torch, case: str, B, S, Hq, Hkv, D, dtype, window, reps, gen):
     import torch.nn.functional as Fn
 
     from repro_torch.kernels import flash_attention as kmod
+    from repro_torch.kernels import ops as kops
     from repro_torch.kernels.ref import flash_attention_ref
 
     dt = getattr(torch, dtype)
@@ -442,9 +459,9 @@ def check_flash(torch, case: str, B, S, Hq, Hkv, D, dtype, window, reps, gen):
         lib = lambda: Fn.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,  # noqa: E731
                                                       enable_gqa=gqa)
     library_ms = cuda_ms(torch, lib, reps)
-    pairs = int(mask.sum().item())  # the (query, key) pairs this mask keeps
-    ops = 4.0 * D * pairs * B * Hq  # QK^T and PV, 2 D operations each per pair
-    bound_ms, bound_by = bound(nbytes(q, k, v, out), ops, dtype)
+    # QK^T and PV over the (query, key) pairs the mask keeps
+    cost = kops.flash_attention_cost(q, k, v, causal=True, window=window)
+    bound_ms, bound_by = bound(cost.bytes, cost.flops, dtype)
     row = dict(kernel="flash_attention", case=case, route=route,
                shape=dict(B=B, S=S, Hq=Hq, Hkv=Hkv, D=D),
                dtype=dtype, window=window, max_abs_err=err, tol=TOL[dtype], ms=ms,
@@ -463,6 +480,7 @@ def check_decode(torch, case: str, B, Smax, Hq, Hkv, D, dtype, lengths, reps, ge
     import torch.nn.functional as Fn
 
     from repro_torch.kernels import decode_attention as kmod
+    from repro_torch.kernels import ops as kops
     from repro_torch.kernels.ref import decode_attention_ref
 
     dt = getattr(torch, dtype)
@@ -493,10 +511,9 @@ def check_decode(torch, case: str, B, Smax, Hq, Hkv, D, dtype, lengths, reps, ge
     mask = (torch.arange(Smax, device="cuda")[None, :] < lens[live][:, None])[:, None, None, :]
     library_ms = cuda_ms(torch, lambda: Fn.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask, enable_gqa=Hq != Hkv), reps)
-    keys = sum(min(max(n, 0), Smax) for n in lengths)  # the keys this run's lengths need
-    esz = q.element_size()
-    moved = nbytes(q, out, lens) + 2 * keys * Hkv * D * esz
-    bound_ms, bound_by = bound(moved, 4.0 * D * keys * (Hq // Hkv) * Hkv, dtype)
+    keys = kops.decode_keys(lens, Smax)  # the keys this run's lengths need
+    cost = kops.decode_attention_cost(q, k, v, lens)
+    bound_ms, bound_by = bound(cost.bytes, cost.flops, dtype)
     row = dict(kernel="decode_attention", case=case,
                shape=dict(B=B, Smax=Smax, Hq=Hq, Hkv=Hkv, D=D), dtype=dtype,
                lengths=dict(min=min(lengths), max=max(lengths), sum=keys),
@@ -512,6 +529,7 @@ def check_decode(torch, case: str, B, Smax, Hq, Hkv, D, dtype, lengths, reps, ge
 def check_gather(torch, case: str, P, W, N, dtype, reps, gen):
     """page_gather against its plain version, bit for bit; the table holds
     repeats.  The plain version IS the library call (``index_select``)."""
+    from repro_torch.kernels import ops as kops
     from repro_torch.kernels import page_gather as kmod
     from repro_torch.kernels.ref import page_gather_ref
 
@@ -525,8 +543,8 @@ def check_gather(torch, case: str, P, W, N, dtype, reps, gen):
     ms = cuda_ms(torch, lambda: kmod.page_gather(pool, table), reps)
     plain_ms = cuda_ms(torch, lambda: page_gather_ref(pool, table), reps)
     library_ms = cuda_ms(torch, lambda: torch.index_select(pool, 0, table), reps)
-    bound_ms, bound_by = bound(nbytes(table, out) + out.numel() * out.element_size(), 0.0,
-                               dtype)
+    cost = kops.page_gather_cost(pool, table)
+    bound_ms, bound_by = bound(cost.bytes, cost.flops, dtype)
     row = dict(kernel="page_gather", case=case, shape=dict(P=P, W=W, N=N), dtype=dtype,
                max_abs_err=0.0, bitwise=True, ms=ms, plain_ms=plain_ms,
                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
@@ -540,6 +558,7 @@ def check_mamba(torch, case: str, B, S, di, n, dtype, zero_h0, reps, gen):
     float32 tolerance; the comparison covers y and h_last.  No one PyTorch
     call computes the recurrence: the library column is null."""
     from repro_torch.kernels import mamba_scan as kmod
+    from repro_torch.kernels import ops as kops
     from repro_torch.kernels.ref import mamba_scan_ref
 
     dt = getattr(torch, dtype)
@@ -558,8 +577,8 @@ def check_mamba(torch, case: str, B, S, di, n, dtype, zero_h0, reps, gen):
     plain_ms = cuda_ms(torch, lambda: mamba_scan_ref(*args), max(2, reps // 10))
     # per (row, step, channel, state): dt*A, *h, dtx*B, +, *C, + -- 6 float32
     # operations -- and one exponential on the special-function units
-    work = B * S * di * n
-    bound_ms, bound_by = bound(nbytes(*args, y, h), 6.0 * work, "float32", exps=work)
+    cost = kops.mamba_scan_cost(*args)
+    bound_ms, bound_by = bound(cost.bytes, cost.flops, "float32", exps=cost.exps)
     row = dict(kernel="mamba_scan", case=case, route=route, shape=dict(B=B, S=S, di=di, n=n),
                dtype=dtype,
                zero_h0=zero_h0, max_abs_err=err, tol=TOL["float32"], ms=ms, plain_ms=plain_ms,
@@ -598,6 +617,7 @@ def check_rg_lru(torch, case: str, B, S, d, dtype, reps, gen, floor_ms=None):
     is random, as a decode step carries it in from the pool.  With
     ``floor_ms`` (the timing floor) the row says whether the bound lies
     under it: such a time says more about a launch than about the work."""
+    from repro_torch.kernels import ops as kops
     from repro_torch.kernels import rg_lru as kmod
     from repro_torch.kernels.ref import rg_lru_ref
 
@@ -612,9 +632,10 @@ def check_rg_lru(torch, case: str, B, S, d, dtype, reps, gen, floor_ms=None):
     torch.testing.assert_close(h, hr, **TOL["float32"])
     ms = cuda_ms(torch, lambda: kmod.rg_lru_scan(*args), reps)
     plain_ms = cuda_ms(torch, lambda: rg_lru_ref(*args), max(2, reps // 10))
-    bound_ms, bound_by = bound(nbytes(*args, y, h), 2.0 * B * S * d, "float32")
+    cost = kops.rg_lru_scan_cost(*args)
+    bound_ms, bound_by = bound(cost.bytes, cost.flops, "float32")
     row = dict(kernel="rg_lru_scan", case=case, shape=dict(B=B, S=S, d=d), dtype=dtype,
-               h0="carried", bytes_moved=nbytes(*args, y, h),
+               h0="carried", bytes_moved=cost.bytes,
                max_abs_err=err, tol=TOL["float32"], ms=ms, plain_ms=plain_ms,
                library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
     if floor_ms is not None:
@@ -3314,6 +3335,341 @@ def seamless_train_phase(torch) -> None:
         shutil.rmtree(directory, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the four serving examples, the dry run and its count on the card
+# ---------------------------------------------------------------------------
+
+
+def rows_vs_forward(torch, adapter, cfg, store, completions) -> float:
+    """Largest |difference| of every served row from the member's direct
+    forward on the request's own payload, held at float32's 1e-5."""
+    worst = 0.0
+    for c in completions:
+        want = adapter.forward(cfg, store.materialize(c.request.instance_id),
+                               c.request.payload)[0].float()
+        got = c.result.float()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        worst = max(worst, (got - want).abs().max().item())
+    return worst
+
+
+def drift_on_changed_labels(torch, ex) -> dict:
+    """``drift_and_revert.run`` where the drift is certain: A's frames
+    labelled with A's own predictions (accuracy 1), B's with a class B's
+    model never predicts for them (accuracy 0), the label function changed."""
+    from repro_torch.data.synthetic import VisionStream
+    from repro_torch.models import vision as VI
+
+    pa = VI.init_small_cnn(ex.CFG, seed=0, device="cuda")
+    pb = VI.init_small_cnn(ex.CFG, seed=1, device="cuda")
+    frames = {m: VisionStream(4, 64, seed=s, device="cuda").batch_at(0)
+              for m, s in (("A", 0), ("B", 999))}
+    with torch.no_grad():
+        pred_a = VI.small_cnn_forward(ex.CFG, pa, frames["A"]["images"]).argmax(-1)
+        pred_b = VI.small_cnn_forward(ex.CFG, pb, frames["B"]["images"]).argmax(-1)
+    frames["A"] = dict(frames["A"], labels=pred_a.to(frames["A"]["labels"].dtype))
+    frames["B"] = dict(frames["B"], labels=((pred_b + 1) % ex.CFG.n_classes).to(
+        frames["B"]["labels"].dtype))
+    return ex.run(ex.CFG, pa, pb, frames)
+
+
+def examples_phase(torch) -> tuple:
+    """``repro_torch.examples``' four serving examples on the card at their
+    own sizes, each through its ``main(["--device", "cuda"])``
+    (``examples_<name>`` lines: what each prints, and its wall seconds).
+    Gates: merge_and_serve's 40 engine requests served and every served row
+    (both lanes) against the member's direct forward (float32, 1e-5);
+    cloud_edge_plan's one epoch bump with 9 queued requests kept and
+    served, rows the same; drift_and_revert's own draws reported, then the
+    same run with the drift made certain (``drift_on_changed_labels``): B
+    breached and reverted, A kept; ``bank_matmul`` launched (the engines'
+    float32 heads, the ``simt`` route).  quickstart pretrains and retrains
+    under deterministic cuDNN, as ``small_cnn_retrain``."""
+    from repro_torch.examples import cloud_edge_plan, drift_and_revert, merge_and_serve, quickstart
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import get_adapter
+
+    t_phase = start_phase(torch, "examples")
+    ops.reset_kernel_launches()
+    adapter = get_adapter("small_cnn")
+    cfg = adapter.default_config()
+
+    t0 = time.perf_counter()
+    out = merge_and_serve.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    real = out["real"]
+    err = max(rows_vs_forward(torch, adapter, cfg, real["store"], real["engine_completions"]),
+              rows_vs_forward(torch, adapter, cfg, real["store"],
+                              real["per_request_completions"]))
+    assert real["engine"]["completed"] == 40, real["engine"]
+    emit("examples_merge_and_serve", simulated=out["simulated"], per_request=real["per_request"],
+         engine={k: v for k, v in real["engine"].items() if not isinstance(v, dict)},
+         max_abs_err_vs_forward=err, seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    out = cloud_edge_plan.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    edge = out["edge"]
+    err = rows_vs_forward(torch, cloud_edge_plan.ADAPTER, cloud_edge_plan.CFG, edge["store"],
+                          edge["engine"].completions)
+    assert (edge["epoch_bumps"], edge["pending_requests"]) == (1, 9), edge
+    assert edge["stats"]["completed"] == 9, edge["stats"]
+    emit("examples_cloud_edge_plan", cloud=out["cloud"],
+         shared_keys=len(edge["shared_keys"]), epoch_bumps=edge["epoch_bumps"],
+         pending_requests=edge["pending_requests"],
+         resident_bytes=[edge["resident_bytes_before"], edge["resident_bytes_after"]],
+         prefix_groups_after=edge["prefix_groups_after"], served=edge["stats"]["completed"],
+         max_abs_err_vs_forward=err, seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    own = drift_and_revert.main(["--device", "cuda"])
+    certain = drift_on_changed_labels(torch, drift_and_revert)
+    assert certain["breached"] == certain["reverted"] == {"B"}, certain
+    assert certain["shared_after"] < certain["shared_before"], certain
+    emit("examples_drift_and_revert",
+         own_draws={k: sorted(v) if isinstance(v, set) else v for k, v in own.items()},
+         changed_labels={k: sorted(v) if isinstance(v, set) else v
+                         for k, v in certain.items()},
+         seconds=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        out = quickstart.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    emit("examples_quickstart", **out, seconds=time.perf_counter() - t0)
+
+    launches, routes = ops.kernel_launches(), ops.route_launches()
+    assert launches["bank_matmul"] > 0, launches
+    assert routes["bank_matmul"]["wgmma"] == 0, routes  # float32 heads: simt
+    emit("phase_end", name="examples", launches=launches, route_launches=routes,
+         seconds=time.perf_counter() - t_phase)
+    return launches, routes
+
+
+# the dry run's cells run on the card's host (meta tensors): every
+# architecture's decode_32k on the single-pod mesh, stablelm-1.6b's
+# train_4k and prefill_32k
+DRYRUN_CELLS = [(a, "decode_32k", "single") for a in (
+    "deepseek-moe-16b", "falcon-mamba-7b", "internvl2-2b", "olmo-1b", "olmoe-1b-7b",
+    "qwen2-72b", "qwen3-14b", "recurrentgemma-9b", "seamless-m4t-medium", "stablelm-1.6b")] + [
+    ("stablelm-1.6b", "train_4k", "single"), ("stablelm-1.6b", "prefill_32k", "single")]
+
+
+def dryrun_phase(torch) -> None:
+    """``launch.dryrun`` in this process over ``DRYRUN_CELLS`` (their JSON
+    under ``artifacts/torch/dryrun``), then ``bench.roofline.run()`` over
+    what the dry run holds there (``dryrun_cell`` lines: flops, bytes and
+    peak per device, the dominant term and the cell's seconds).  Gate:
+    every cell ok, each one's roofline row present."""
+    from repro_torch.bench import roofline
+    from repro_torch.launch import dryrun
+
+    t_phase = start_phase(torch, "dryrun")
+    cells = {}
+    for arch, shape, mesh in DRYRUN_CELLS:
+        res = dryrun.run_and_write(arch, shape, mesh, out=dryrun.DEFAULT_OUT)
+        assert res["ok"], res["error"]
+        cells[(arch, shape, mesh)] = res
+    t0 = time.perf_counter()
+    rows = {(r["arch"], r["shape"], r["mesh"]): r for r in roofline.run()["rows"]}
+    roofline_s = time.perf_counter() - t0
+    for key, res in cells.items():
+        row = rows[key]
+        emit("dryrun_cell", arch=key[0], shape=key[1], mesh=key[2], kind=res["kind"],
+             flops_per_device=res["flops_per_device"],
+             bytes_per_device=res["bytes_per_device"],
+             peak_bytes_estimate=res["peak_bytes_estimate"], op_calls=res["op_calls"],
+             dominant=row["dominant"], compute_s=row["compute_s"], memory_s=row["memory_s"],
+             seconds=res["seconds"])
+    emit("phase_end", name="dryrun", cells=len(cells), roofline_s=roofline_s,
+         seconds=time.perf_counter() - t_phase)
+
+
+# dryrun_card: stablelm-1.6b at full width on the card, the batch cut to
+# fit one card (the cells' 32 and 128 rows would hold 206 GB and 824 GB
+# of KV cache)
+CARD_PREFILL = dict(seq_len=32768, batch=1)
+CARD_DECODE = dict(seq_len=32768, batch=4)
+
+
+def _tree_meta(tree):
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _tree_meta(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_meta(v) for v in tree)
+    return (tuple(tree.shape), str(tree.dtype)) if isinstance(tree, torch.Tensor) else tree
+
+
+def _storage_bytes(*trees) -> int:
+    import torch
+    from torch.utils._pytree import tree_flatten
+
+    seen = {}
+    for t in tree_flatten(trees)[0]:
+        if isinstance(t, torch.Tensor):
+            st = t.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def profile_call(torch, fn, args, reset=None) -> dict:
+    """One more call of ``fn`` under ``torch.profiler``: device busy ms,
+    the device's idle share of the profiled wall, the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if reset is not None:
+        reset()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    del out
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    busy_ms = sum(ms for _, ms, _ in rows)
+    return dict(wall_ms_profiled=wall_ms, device_busy_ms=busy_ms,
+                device_idle_share=max(0.0, 1 - busy_ms / wall_ms),
+                top_kernels=[dict(name=n[:90], ms=ms, share=ms / busy_ms, calls=k)
+                             for n, ms, k in sorted(rows, key=lambda r: -r[1])[:6]])
+
+
+def card_count_check(torch, name, fn, meta_args, card_args, reset=None, reps: int = 3) -> dict:
+    """``fn`` traced on ``meta_args`` (``launch.dryrun.trace``) and run on
+    ``card_args``: argument bytes equal, output shapes and dtypes equal,
+    the warm time (CUDA events, the mean of ``reps`` calls, ``reset()``
+    before each) at least the roofline bound of the trace's flops and
+    bytes; the trace's peak beside ``torch.cuda.max_memory_allocated``."""
+    from repro_torch.bench import roofline
+    from repro_torch.launch.dryrun import trace
+    from repro_torch.kernels import ops
+
+    tr = trace(fn, *meta_args)
+    card_arg_bytes = _storage_bytes(card_args)
+    assert tr.argument_bytes == card_arg_bytes, (name, tr.argument_bytes, card_arg_bytes)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ops.reset_kernel_launches()
+    with torch.no_grad():
+        if reset is not None:
+            reset()
+        out = fn(*card_args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        one_call = ops.kernel_launches()
+        assert _tree_meta(out) == _tree_meta(tr.out), (name, _tree_meta(out), _tree_meta(tr.out))
+        del out
+        times = []
+        for _ in range(reps):
+            if reset is not None:
+                reset()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*card_args)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+            del out
+        profiled = profile_call(torch, fn, card_args, reset)
+    ms = sum(times) / len(times)
+    compute_ms = tr.flops / roofline.PEAK_FLOPS * 1e3
+    memory_ms = tr.bytes / roofline.HBM_BW * 1e3
+    bound_ms = max(compute_ms, memory_ms)
+    row = dict(flops=tr.flops, bytes=tr.bytes, argument_bytes=tr.argument_bytes,
+               argument_bytes_exact=True, op_calls=tr.op_calls,
+               compute_ms=compute_ms, memory_ms=memory_ms, bound_ms=bound_ms,
+               bound_by="operations" if compute_ms >= memory_ms else "bytes",
+               ms=ms, ms_each=times, share_of_bound=bound_ms / ms,
+               trace_peak_live_bytes=tr.peak_live_bytes, card_max_memory_allocated=peak,
+               card_allocated_before=base, launches_one_call=one_call, profiled=profiled)
+    emit(f"dryrun_card_{name}", **row)
+    assert bound_ms <= ms, (name, bound_ms, ms)
+    # every call's launches (1 + reps), as every other phase counts its runs
+    return row, ops.kernel_launches(), ops.route_launches()
+
+
+def dryrun_card_phase(torch) -> tuple:
+    """The dry run's count held against the card (``dryrun_card``):
+    full-width stablelm-1.6b (24 layers, d 2048, vocab 100352, bf16), one
+    prefill of 1 x 32768 tokens and one decode step of 4 rows against a
+    32768-slot cache filled to its last slot, each traced on meta tensors
+    and run for real through the kernels (``card_count_check``).  Gates:
+    argument bytes exact, outputs' shapes and dtypes equal, each warm time
+    at least its bound (a share over 100% would mean the count is wrong),
+    flash and decode_attention launched; the decode also at least the
+    weights' read at the memory rate (``anchor_ms``)."""
+    from repro_torch.bench import roofline
+    from repro_torch.configs import stablelm_1_6b
+    from repro_torch.configs.base import ShapeSpec, cache_specs
+    from repro_torch.launch.dryrun import cell_call
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import get_family
+    from repro_torch.utils.tree import flatten_paths
+
+    t_phase = start_phase(torch, "dryrun_card")
+    cfg = stablelm_1_6b.full_config()
+    fam = get_family("dense")
+    meta_params = fam.init(cfg, 0, device="meta")
+    params = fam.init(cfg, 0, device="cuda")
+    weight_bytes = sum(nbytes(t) for t in flatten_paths(params).values())
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    launches = collections.Counter()
+    routes = collections.defaultdict(collections.Counter)
+    rows = {}
+
+    S, B = CARD_PREFILL["seq_len"], CARD_PREFILL["batch"]
+    shape = ShapeSpec("prefill_32k", S, B, "prefill")
+    fn, _ = cell_call(fam, "dense", cfg, shape)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    rows["prefill"], run, run_routes = card_count_check(
+        torch, "prefill", fn, (meta_params, torch.empty((B, S), dtype=torch.int32,
+                                                         device="meta")), (params, toks))
+    launches.update(run)
+    for k, v in run_routes.items():
+        routes[k].update(v)
+    del toks
+    torch.cuda.empty_cache()
+
+    S, B = CARD_DECODE["seq_len"], CARD_DECODE["batch"]
+    shape = ShapeSpec("decode_32k", S, B, "decode")
+    fn, _ = cell_call(fam, "dense", cfg, shape)
+    cache = transformer.init_cache(cfg, B, S, device="cuda")
+    for leaf in (cache["k"], cache["v"]):  # a filled cache: values of the model's scale
+        for i in range(leaf.shape[0]):
+            leaf[i].normal_(generator=gen)
+    toks = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    meta_cache = cache_specs(cfg, "dense", shape)
+    rows["decode"], run, run_routes = card_count_check(
+        torch, "decode", fn,
+        (meta_params, meta_cache, torch.empty((B, 1), dtype=torch.int32, device="meta")),
+        (params, cache, toks), reset=lambda: cache["length"].fill_(S - 1), reps=5)
+    launches.update(run)
+    for k, v in run_routes.items():
+        routes[k].update(v)
+    anchor_ms = weight_bytes / roofline.HBM_BW * 1e3
+    assert rows["decode"]["ms"] >= anchor_ms, (rows["decode"]["ms"], anchor_ms)
+    assert launches["flash_attention"] > 0 and launches["decode_attention"] > 0, launches
+    del cache, toks, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("phase_end", name="dryrun_card", weight_bytes=weight_bytes, anchor_ms=anchor_ms,
+         prefill=dict(batch=CARD_PREFILL["batch"], seq_len=CARD_PREFILL["seq_len"],
+                      share=rows["prefill"]["share_of_bound"]),
+         decode=dict(batch=CARD_DECODE["batch"], seq_len=CARD_DECODE["seq_len"],
+                     share=rows["decode"]["share_of_bound"]),
+         cut="batch 32 -> 1 (prefill), 128 -> 4 (decode); widths and 24 layers whole",
+         launches=dict(launches), seconds=time.perf_counter() - t_phase)
+    return dict(launches), {k: dict(v) for k, v in routes.items()}
+
+
 def full_precision_matmuls(torch) -> None:
     """float32 matmuls without TF32, bf16 ones with float32 reductions."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3449,6 +3805,9 @@ def main() -> int:
     t0 = start_phase(torch, "small_cnn_retrain")
     small_cnn_retrain_phase(torch)
     emit("phase_end", name="small_cnn_retrain", seconds=time.perf_counter() - t0)
+    add(*examples_phase(torch))
+    dryrun_phase(torch)
+    add(*dryrun_card_phase(torch))
     assert all(launches[name] > 0 for name in main_rows), launches
 
     kernels = []

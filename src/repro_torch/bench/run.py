@@ -6,10 +6,11 @@
 ``--fast`` skips the retraining-based fig7.  ``--device`` (default
 ``cuda``) goes to every bench that touches a device; the paper's figure
 and table benches other than fig7 and fig14's plan-wire lane are host
-arithmetic.  Each bench writes ``artifacts/torch/<name>.json``.  The
-reference's ``roofline`` is not ported yet (it goes before
-``shard_serve``); its ``mixed_zoo``, which ``benchmarks/run.py`` does not
-list either, runs as ``python -m repro_torch.bench.mixed_zoo``.
+arithmetic.  Each bench writes ``artifacts/torch/<name>.json``;
+``roofline`` reads the dry run's cells (``python -m
+repro_torch.launch.dryrun``).  The reference's ``mixed_zoo``, which
+``benchmarks/run.py`` does not list, runs as ``python -m
+repro_torch.bench.mixed_zoo``.
 """
 from __future__ import annotations
 
@@ -40,6 +41,7 @@ BENCHES = (
     ("drift_adapt", True),
     ("overload", True),
     ("ablation_ordering", False),
+    ("roofline", False),
     ("shard_serve", True),
 )
 

@@ -278,10 +278,11 @@ def unembed(x: torch.Tensor, table_or_head: torch.Tensor, transpose: bool):
     Half-precision operands on the card go through one cuBLAS GEMM with a
     float32 output on the 2-D view (no float32 copy of the table); that
     GEMM has no derivative in torch, so under autograd (training) the
-    float32 product below runs on the card too."""
+    float32 product below runs on the card too.  ``meta`` tensors take the
+    card's route (the dry run counts what the card runs)."""
     w = table_or_head.t() if transpose else table_or_head
     recorded = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
-    if (x.is_cuda and x.dtype in (torch.bfloat16, torch.float16) and w.dtype == x.dtype
+    if (x.device.type in ("cuda", "meta") and x.dtype in (torch.bfloat16, torch.float16) and w.dtype == x.dtype
             and not recorded):
         out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
         return out.reshape(*x.shape[:-1], w.shape[-1])

@@ -159,8 +159,11 @@ def route(cfg: MoELMConfig, router_w: torch.Tensor, x: torch.Tensor) -> tuple:
 def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a (n, m, k) @ b (n, k, f) as float32 sums: half-precision operands
     on the card through one GEMM with a float32 output (as ``unembed``),
-    else both widened first."""
-    if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16) and b.dtype == a.dtype:
+    else both widened first; ``meta`` as the card.  That GEMM has no
+    derivative in torch, so under autograd the widened product runs."""
+    recorded = torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)
+    if (a.device.type in ("cuda", "meta") and a.dtype in (torch.bfloat16, torch.float16)
+            and b.dtype == a.dtype and not recorded):
         return torch.bmm(a, b, out_dtype=torch.float32)
     return torch.bmm(a.float(), b.float())
 

@@ -1706,3 +1706,73 @@ def test_encdec_trainer_resumes_bitwise_on_the_card(cuda_device, tmp_path):
         assert all(torch.equal(a[k], b[k]) for k in a), tree
     assert all(torch.equal(straight["state"]["opt"].nu[k], v)
                for k, v in resumed["state"]["opt"].nu.items())
+
+
+def _op_args(device):
+    """Arguments of each op at small shapes (bf16 where the kernel takes it)."""
+    g = torch.Generator(device="cpu").manual_seed(0)
+
+    def rnd(*shape, dt=torch.bfloat16):
+        t = torch.randn(shape, generator=g).to(dt)
+        return t.to(device) if device != "meta" else torch.empty(shape, dtype=dt, device="meta")
+
+    lens = torch.tensor([40, 1, 17, 0], dtype=torch.int32)
+    table = torch.tensor([3, 0, 3, 7], dtype=torch.int32)
+    f32 = torch.float32
+    return {
+        "flash_attention": ((rnd(2, 40, 4, 64), rnd(2, 40, 2, 64), rnd(2, 40, 2, 64)), {}),
+        "decode_attention": ((rnd(4, 4, 64), rnd(4, 48, 2, 64), rnd(4, 48, 2, 64),
+                              lens.to(device) if device != "meta" else
+                              torch.empty(4, dtype=torch.int32, device="meta")), {}),
+        "page_gather": ((rnd(8, 256), table.to(device) if device != "meta" else
+                         torch.empty(4, dtype=torch.int32, device="meta")), {}),
+        "bank_matmul": ((rnd(3, 16, 64), rnd(3, 64, 128)), {}),
+        "mamba_scan": ((rnd(2, 5, 64, dt=f32).abs(), rnd(2, 5, 64, dt=f32), rnd(2, 5, 16, dt=f32),
+                        rnd(2, 5, 16, dt=f32), -rnd(64, 16, dt=f32).abs(),
+                        rnd(2, 64, 16, dt=f32)), {}),
+        "rg_lru_scan": ((rnd(2, 5, 64, dt=f32).sigmoid(), rnd(2, 5, 64, dt=f32),
+                         rnd(2, 64, dt=f32)), {}),
+    }
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(ops.OP_TABLE))
+def test_meta_call_gives_the_kernels_output_shapes(cuda_device, name):
+    """An op on meta tensors (the plain version, shapes only) and the same op
+    on the card (the kernel) give outputs of one shape and dtype; the meta
+    call launches nothing."""
+    spec = ops.OP_TABLE[name]
+    ops.reset_kernel_launches()
+    margs, mkw = _op_args("meta")[name]
+    meta = spec.dispatch(*margs, **mkw)
+    assert ops.kernel_launches()[name] == 0
+    cargs, ckw = _op_args(cuda_device)[name]
+    with torch.no_grad():
+        card = spec.dispatch(*cargs, **ckw)
+    torch.cuda.synchronize()
+    assert ops.kernel_launches()[name] == 1
+    meta, card = (meta, card) if isinstance(meta, tuple) else ((meta,), (card,))
+    assert [(t.shape, t.dtype) for t in meta] == [(t.shape, t.dtype) for t in card]
+    assert all(t.device.type == "meta" for t in meta)
+
+
+@pytest.mark.gpu
+def test_cloud_edge_plan_example_serves_through_the_bank_on_the_card(cuda_device):
+    """``examples/cloud_edge_plan.py``'s port on the card: one epoch bump,
+    9 queued requests kept and served, rows against the direct forward,
+    the private heads through ``bank_matmul`` (float32: the simt route)."""
+    from repro_torch.examples import cloud_edge_plan as ex
+
+    ops.reset_kernel_launches()
+    out = ex.main(["--device", "cuda"])
+    edge = out["edge"]
+    assert (edge["epoch_bumps"], edge["pending_requests"]) == (1, 9)
+    assert edge["stats"]["completed"] == 9
+    assert edge["resident_bytes_after"] < edge["resident_bytes_before"]
+    launches, routes = ops.kernel_launches(), ops.route_launches()
+    assert launches["bank_matmul"] > 0 and routes["bank_matmul"]["wgmma"] == 0
+    cfg, store = ex.CFG, edge["store"]
+    for c in edge["engine"].completions:
+        want = ex.ADAPTER.forward(cfg, store.materialize(c.request.instance_id),
+                                  c.request.payload)[0]
+        torch.testing.assert_close(c.result.float(), want.float(), rtol=1e-5, atol=1e-5)

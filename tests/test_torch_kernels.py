@@ -409,12 +409,17 @@ def test_kernel_wrappers_take_cuda_tensors_only():
         kmamba.mamba_scan(x[None], x[None], w, w, x.t(), w)
     with pytest.raises(ValueError, match="CUDA tensors only"):
         krglru.rg_lru_scan(x[None], x[None], x)
-    with pytest.raises(ValueError, match="no implementation for device meta"):
-        ops.rg_lru_scan(x[None].to("meta"), x[None].to("meta"), x.to("meta"))
-    with pytest.raises(ValueError, match="no implementation for device meta"):
-        ops.page_gather(x.to("meta"), torch.zeros(2, dtype=torch.int32))
-    with pytest.raises(ValueError, match="no implementation for device meta"):
-        ops.bank_matmul(x.to("meta"), w.to("meta"))
+    # meta tensors take the plain version, as CPU tensors do: shapes only,
+    # no kernel reached
+    ops.reset_kernel_launches()
+    y, h = ops.rg_lru_scan(x[None].to("meta"), x[None].to("meta"), x.to("meta"))
+    assert [(t.device.type, t.shape) for t in (y, h)] == \
+        [("meta", t.shape) for t in ops.rg_lru_scan(x[None], x[None], x)]
+    g = ops.page_gather(x.to("meta"), torch.zeros(2, dtype=torch.int32, device="meta"))
+    assert (g.device.type, g.shape) == ("meta", (2, 8))
+    b = ops.bank_matmul(x.to("meta"), w.to("meta"))
+    assert (b.device.type, b.shape, b.dtype) == ("meta", (2, 4, 5), torch.float32)
+    assert not any(ops.kernel_launches().values())
 
 
 def test_op_table_names_each_kernel_its_source_and_the_tpu_kernel():
