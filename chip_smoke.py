@@ -21,7 +21,10 @@ device memory still allocated and closes with its seconds):
    also bitwise against its own rows at M = 1 and N = 1; every
    decode_attention row bitwise alone (B = 1) and in its batch, with
    lengths straddling its key chunks; a mamba_scan serve scan bitwise
-   against the same steps chained at S = 1 (``mamba_chain``);
+   against the same steps chained at S = 1 (``mamba_chain``), and the
+   same for rg_lru_scan in float32 and bf16 (``rg_lru_chain``: its
+   "scan" route against its "step" route); every rg_lru_scan row names
+   the route its launch counted, "plain" included (d = 1001);
 4. small_cnn merge-and-serve: two members, trunk merged, through
    ``MergeAwareEngine``; completions against direct forwards;
 5. ``paper_sim`` (host only): ``examples/merge_and_serve.py``'s simulated
@@ -39,11 +42,12 @@ device memory still allocated and closes with its seconds):
    trunk perturbed by 0.005, head by 1.0), every trunk group merged, 8
    requests of 128 tokens per member served through ``MergeAwareEngine``
    (``<prefix>_merge`` / ``_serve``): kernel launch counts (every bank and
-   flash launch on the tensor-core route, every scan on mamba_scan's
-   "scan" route), residency, and
+   flash launch on the tensor-core route, every scan on mamba_scan's and
+   rg_lru_scan's "scan" route), residency, and
    every served row against the member's direct forward on the same
    padded batch; then one more micro-batch under ``torch.profiler``
-   (``_profile``: device time by kernel, device idle share):
+   (``_profile``: device time by kernel, device idle share, rg_lru_scan's
+   device time):
    * stablelm-1.6b (dense: ``flash_attention``, ``bank_matmul`` suffix bank),
      with GEMEL's comparison against time/space sharing at a swap
      capacity (the merged group's bytes, the largest bucket's activation
@@ -73,8 +77,9 @@ device memory still allocated and closes with its seconds):
    and a 2048-slot KV ring for each of its 2 attention layers); dispatch
    discipline (a banked head per group step, or for recurrentgemma's tied
    head one head per member), kernel launch counts over the streaming run
-   (every mamba scan on its "step" route; rg_lru_scan once per recurrent
-   layer per trunk pass, each at S = 1), pool accounting, one request per
+   (every mamba scan and rg_lru_scan on its "step" route; rg_lru_scan
+   once per recurrent layer per trunk pass, each at S = 1), pool
+   accounting, one request per
    member replayed teacher-forced through the unpaged decode (with a
    batch-8 control; ``chip_griffin_rows.py`` finds which operations make
    recurrentgemma's rows depend on the batch size); then pure
@@ -245,10 +250,11 @@ device memory still allocated and closes with its seconds):
 Each family's store, engine and decoder are released before the next
 family's phase.  Then the ``{"kernels": [...]}`` line (each kernel's
 launches summed over every serve, decode, lane and plan run above,
-small_cnn's serve included, by route where a kernel has two; ``route`` is
-"cuda" for all, ``cuda_route`` the design the main row took) and, last,
-the device line.  Needs one card; imports
-nothing of JAX and nothing of the JAX package.
+small_cnn's serve included, by route where a kernel has more than one;
+``check_launches_by_route`` the same counted over phase 3's checks, where
+a route no main-path shape takes shows; ``route`` is "cuda" for all,
+``cuda_route`` the design the main row took) and, last, the device line.
+Needs one card; imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
@@ -611,12 +617,40 @@ def check_mamba_chain(torch, B, S, di, n, dtype, gen) -> None:
          y_bitwise=True, h_last_bitwise=True)
 
 
+def check_rg_lru_chain(torch, B, S, d, dtype, gen) -> None:
+    """rg_lru_scan's serve scan of S steps ("scan" route) against S chained
+    S = 1 launches ("step" route) that carry h_last as the next h0: y and
+    h_last bitwise equal, as for mamba_scan."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import rg_lru as kmod
+
+    dt = getattr(torch, dtype)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
+    a, b, h0 = torch.sigmoid(rnd(B, S, d)).to(dt), rnd(B, S, d).to(dt), rnd(B, d)
+    before = kops.route_launches()["rg_lru_scan"]
+    y, h = kmod.rg_lru_scan(a, b, h0)
+    hc, ys = h0, []
+    for t in range(S):
+        yt, hc = kmod.rg_lru_scan(a[:, t:t + 1].contiguous(), b[:, t:t + 1].contiguous(), hc)
+        ys.append(yt)
+    torch.cuda.synchronize()
+    after = kops.route_launches()["rg_lru_scan"]
+    routes = {r: after[r] - before[r] for r in after}
+    assert routes == {"scan": 1, "step": S, "plain": 0}, routes
+    assert torch.equal(torch.cat(ys, dim=1), y), "rg_lru_scan: chained steps' y differ"
+    assert torch.equal(hc, h), "rg_lru_scan: chained steps' h_last differs"
+    emit("rg_lru_chain", shape=dict(B=B, S=S, d=d), dtype=dtype, launches_by_route=routes,
+         y_bitwise=True, h_last_bitwise=True)
+
+
 def check_rg_lru(torch, case: str, B, S, d, dtype, reps, gen, floor_ms=None):
     """rg_lru_scan against its plain version (y and h_last), at the float32
     tolerance for either input dtype as for mamba_scan; library null.  h0
-    is random, as a decode step carries it in from the pool.  With
-    ``floor_ms`` (the timing floor) the row says whether the bound lies
-    under it: such a time says more about a launch than about the work."""
+    is random, as a decode step carries it in from the pool.  The row's
+    route is the one whose count (``ops.route_launches()``) the checked
+    launch raised, held to ``kernels.rg_lru.route``.  With ``floor_ms``
+    (the timing floor) the row says whether the bound lies under it: such
+    a time says more about a launch than about the work."""
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import rg_lru as kmod
     from repro_torch.kernels.ref import rg_lru_ref
@@ -624,8 +658,13 @@ def check_rg_lru(torch, case: str, B, S, d, dtype, reps, gen, floor_ms=None):
     dt = getattr(torch, dtype)
     rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
     args = (torch.sigmoid(rnd(B, S, d)).to(dt), rnd(B, S, d).to(dt), rnd(B, d))
+    before = kops.route_launches()["rg_lru_scan"]
     y, h = kmod.rg_lru_scan(*args)
     torch.cuda.synchronize()
+    after = kops.route_launches()["rg_lru_scan"]
+    counted = [r for r in after if after[r] != before[r]]
+    route = kmod.route(*args)
+    assert counted == [route] and after[route] == before[route] + 1, (before, after, route)
     yr, hr = rg_lru_ref(*args)
     err = max((y - yr).abs().max().item(), (h - hr).abs().max().item())
     torch.testing.assert_close(y, yr, **TOL["float32"])
@@ -634,8 +673,8 @@ def check_rg_lru(torch, case: str, B, S, d, dtype, reps, gen, floor_ms=None):
     plain_ms = cuda_ms(torch, lambda: rg_lru_ref(*args), max(2, reps // 10))
     cost = kops.rg_lru_scan_cost(*args)
     bound_ms, bound_by = bound(cost.bytes, cost.flops, "float32")
-    row = dict(kernel="rg_lru_scan", case=case, shape=dict(B=B, S=S, d=d), dtype=dtype,
-               h0="carried", bytes_moved=cost.bytes,
+    row = dict(kernel="rg_lru_scan", case=case, route=route, shape=dict(B=B, S=S, d=d),
+               dtype=dtype, h0="carried", bytes_moved=cost.bytes,
                max_abs_err=err, tol=TOL["float32"], ms=ms, plain_ms=plain_ms,
                library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
     if floor_ms is not None:
@@ -705,10 +744,17 @@ def kernel_checks(torch) -> dict:
     check_mamba(torch, "falcon-decode", 8, 1, 8192, 16, "float32", False, 50, gen)
     check_mamba(torch, "n8", 8, 128, 8192, 8, "float32", False, 20, gen)
     check_mamba_chain(torch, 8, 16, 8192, 16, "float32", gen)
-    # recurrentgemma-9b: the RG-LRU at 8 x 128 tokens, d_rnn 4096
+    for dtype in ("float32", "bfloat16"):
+        check_rg_lru_chain(torch, 8, 16, 4096, dtype, gen)
+    # recurrentgemma-9b: the RG-LRU at 8 x 128 tokens, d_rnn 4096 ("scan")
     main["rg_lru_scan"] = check_rg_lru(torch, "rgemma-serve", 8, 128, 4096, "float32", 50, gen)
     check_rg_lru(torch, "rgemma-serve", 8, 128, 4096, "bfloat16", 50, gen)
+    # the scan's tail tiles: S past a box of steps, and S under one box
+    check_rg_lru(torch, "s129", 8, 129, 4096, "float32", 50, gen)
+    check_rg_lru(torch, "s13-d4096", 8, 13, 4096, "float32", 50, gen)
     check_rg_lru(torch, "ragged", 3, 13, 1000, "float32", 50, gen)
+    # rows of 4004 bytes, not a multiple of 16: the "plain" route
+    check_rg_lru(torch, "d1001", 3, 13, 1001, "float32", 50, gen)
     # recurrentgemma-9b decode: one token per row with h carried from the
     # pool, once per recurrent layer (26) per trunk pass
     check_rg_lru(torch, "rgemma-decode", 8, 1, 4096, "float32", 50, gen, floor_ms)
@@ -813,11 +859,14 @@ def tensor_core_routes_only(routes: dict) -> None:
 
 
 def scan_route_only(routes: dict, route: str) -> None:
-    """Every mamba_scan launch of a phase took ``route``: "scan" in a serve
-    (whole 128-token requests), "step" in a streaming decode (every decode
-    step and every prefill chunk runs the trunk one token at a time)."""
+    """Every mamba_scan and rg_lru_scan launch of a phase took ``route``:
+    "scan" in a serve (whole 128-token requests), "step" in a streaming
+    decode (every decode step and every prefill chunk runs the trunk one
+    token at a time); no rg_lru_scan launch took "plain" (every d_rnn has
+    16-byte rows)."""
     other = {"scan": "step", "step": "scan"}[route]
     assert routes["mamba_scan"][other] == 0, routes
+    assert all(n == 0 for r, n in routes["rg_lru_scan"].items() if r != route), routes
 
 
 def small_cnn_phase(torch) -> None:
@@ -959,6 +1008,8 @@ def lm_merge_and_serve(torch, prefix: str, adapter, cfg, store, built: dict,
     assert all(launches[k] > 0 for k in expect), launches
     tensor_core_routes_only(routes)
     scan_route_only(routes, "scan")
+    if "rg_lru_scan" in expect:
+        assert routes["rg_lru_scan"]["scan"] == launches["rg_lru_scan"] > 0, routes
     if cfg.tie_embeddings:
         assert launches["bank_matmul"] == 0, launches
         assert stats["suffix_dispatches"] == stats["suffix_runs"] == sum(members), stats
@@ -976,6 +1027,13 @@ def lm_merge_and_serve(torch, prefix: str, adapter, cfg, store, built: dict,
                        f"{prefix}_profile")
     emit("phase_end", name=f"{prefix}_profile", seconds=time.perf_counter() - t_phase)
     return launches, routes, eng
+
+
+def device_time_of(rows: list, prefix: str) -> dict:
+    """ms and launches of the profiled kernels whose names hold ``prefix``
+    (``rows``: (name, ms, count) of device events)."""
+    hit = [(ms, k) for n, ms, k in rows if prefix in n]
+    return dict(ms=sum(ms for ms, _ in hit), launches=sum(k for _, k in hit))
 
 
 def profile_microbatch(torch, eng, cfg, gen, served_wall_s: float, name: str) -> None:
@@ -1004,6 +1062,7 @@ def profile_microbatch(torch, eng, cfg, gen, served_wall_s: float, name: str) ->
     busy_ms = sum(ms for _, ms, _ in rows)
     top = sorted(rows, key=lambda r: -r[1])[:8]
     emit(name, microbatches=stats["microbatches"], wall_ms_profiled=wall_ms,
+         rg_lru_scan_device=device_time_of(rows, "rg_lru_"),
          device_busy_ms=busy_ms, device_idle_share_profiled=max(0.0, 1 - busy_ms / wall_ms),
          served_wall_ms_per_microbatch=served_wall_s * 1e3,
          device_idle_share=max(0.0, 1 - busy_ms / (served_wall_s * 1e3)),
@@ -1114,6 +1173,8 @@ def decode_phase(torch, prefix: str, eng, cfg, expect: tuple, knobs: dict) -> tu
     assert all(launches[name] > 0 for name in expect), launches
     tensor_core_routes_only(routes)
     scan_route_only(routes, "step")
+    if "rg_lru_scan" in expect:
+        assert routes["rg_lru_scan"]["step"] == launches["rg_lru_scan"] > 0, routes
     passes = dict(dec.trunk_passes)
     checks = {}
     if "page_gather" in expect:
@@ -1176,6 +1237,7 @@ def profile_decode_steps(torch, eng, cfg, knobs: dict, name: str, timed: int = 5
     busy_ms = sum(ms for _, ms, _ in rows)
     top = sorted(rows, key=lambda r: -r[1])[:10]
     emit(name, slots=knobs["max_slots"], timed_steps=timed,
+         rg_lru_scan_device=device_time_of(rows, "rg_lru_"),
          wall_ms_per_decode_step=step_ms,
          tokens_per_s_decode_steps=knobs["max_slots"] / step_ms * 1e3,
          wall_ms_profiled=wall_ms, device_busy_ms=busy_ms,
@@ -3718,8 +3780,13 @@ def main() -> int:
     from repro_torch.models.registry import get_adapter
 
     t0 = start_phase(torch, "kernel_checks")
+    ops.reset_kernel_launches()
     main_rows = kernel_checks(torch)
-    emit("phase_end", name="kernel_checks", seconds=time.perf_counter() - t0)
+    # launches by route of the checks themselves (their timing's included):
+    # routes that no main-path shape takes, rg_lru_scan's "plain", show here
+    check_routes = ops.route_launches()
+    emit("phase_end", name="kernel_checks", seconds=time.perf_counter() - t0,
+         route_launches=check_routes)
     launches = collections.Counter()  # summed over every serve, decode and plan run
     route_totals = collections.defaultdict(collections.Counter)  # the same, by route
 
@@ -3809,6 +3876,10 @@ def main() -> int:
     dryrun_phase(torch)
     add(*dryrun_card_phase(torch))
     assert all(launches[name] > 0 for name in main_rows), launches
+    # rg_lru_scan: serves take "scan", decodes "step"; "plain" only in the checks
+    rg_routes = route_totals["rg_lru_scan"]
+    assert rg_routes["scan"] > 0 and rg_routes["step"] > 0, rg_routes
+    assert check_routes["rg_lru_scan"]["plain"] > 0, check_routes
 
     kernels = []
     for name, row in main_rows.items():
@@ -3816,6 +3887,7 @@ def main() -> int:
         kernels.append(dict(name=name, route="cuda", source=spec.source, replaces=spec.replaces,
                             cuda_route=row.get("route", "cuda"),
                             launches_by_route=dict(route_totals.get(name, {})) or None,
+                            check_launches_by_route=check_routes.get(name),
                             launches=launches[name], max_abs_err=row["max_abs_err"],
                             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                             bound_by=row["bound_by"], library_ms=row["library_ms"]))

@@ -129,7 +129,7 @@ def load_library() -> ctypes.CDLL:
         lib.mamba_scan_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,
                                           ci, ci, vp]
         lib.mamba_scan_launch.restype = ci
-        lib.rg_lru_launch.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
+        lib.rg_lru_launch.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
         lib.rg_lru_launch.restype = ci
         _lib = lib
     return _lib

@@ -339,7 +339,8 @@ def kernel_launches() -> dict:
 def route_launches() -> dict:
     """{op_name: {route: launches}} since the last reset, for the kernels
     that pick between routes (``bank_matmul``: wgmma / simt;
-    ``flash_attention``: mma / simt; ``mamba_scan``: step / scan)."""
+    ``flash_attention``: mma / simt; ``mamba_scan``: step / scan;
+    ``rg_lru_scan``: scan / step / plain)."""
     return {name: dict(spec.kernel.route_launches) for name, spec in OP_TABLE.items()
             if hasattr(spec.kernel, "route_launches")}
 

@@ -17,6 +17,7 @@ from repro_torch.kernels import decode_attention as kdecode
 from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import rg_lru as krglru
 
 TOL = {"float32": dict(rtol=2e-3, atol=2e-3), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 
@@ -131,7 +132,8 @@ def test_float32_takes_the_simt_routes(cuda_device):
     ops.flash_attention(q, q, q)
     assert ops.route_launches() == {"bank_matmul": {"wgmma": 0, "simt": 1},
                                     "flash_attention": {"mma": 0, "simt": 1},
-                                    "mamba_scan": {"step": 0, "scan": 0}}
+                                    "mamba_scan": {"step": 0, "scan": 0},
+                                    "rg_lru_scan": {"scan": 0, "step": 0, "plain": 0}}
 
 
 @pytest.mark.gpu
@@ -194,20 +196,53 @@ def test_mamba_scan_kernel_matches_plain_version(cuda_device, dtype):
         torch.testing.assert_close(h, hr, **TOL["float32"])
 
 
+RG_LRU_SHAPES = {  # shapes (B, S, d) that take the route in float32 and in bf16
+    "scan": [(2, 13, 304), (1, 200, 64), (8, 129, 4096), (8, 13, 4096), (2, 2, 8)],
+    "step": [(8, 1, 4096), (3, 1, 1000)],
+    "plain": [(2, 13, 1001), (8, 1, 1001), (3, 13, 302)],
+}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_rg_lru_kernel_matches_plain_version(cuda_device, dtype):
+@pytest.mark.parametrize("path", list(RG_LRU_SHAPES))
+def test_rg_lru_kernel_matches_plain_version(cuda_device, dtype, path):
+    """Each route's shapes, the scan's partial tiles (S = 13, 129; d under
+    a tile) among them, against rg_lru_ref at the float32 tolerance; every
+    launch counted on the route :func:`kernels.rg_lru.route` names."""
     rnd = _rnd(cuda_device, dtype, 9)
     f32 = _rnd(cuda_device, "float32", 10)
-    for B, S, d in [(2, 13, 300), (8, 1, 4096), (1, 200, 64)]:
+    for B, S, d in RG_LRU_SHAPES[path]:
         a = torch.sigmoid(rnd(B, S, d).float()).to(getattr(torch, dtype))
         args = (a, rnd(B, S, d), f32(B, d))
+        assert krglru.route(*args) == path
         before = ops.kernel_launches()["rg_lru_scan"]
+        routes = ops.route_launches()["rg_lru_scan"]
         y, h = ops.rg_lru_scan(*args)
         assert ops.kernel_launches()["rg_lru_scan"] == before + 1
+        assert ops.route_launches()["rg_lru_scan"][path] == routes[path] + 1
         yr, hr = tref.rg_lru_ref(*args)
         torch.testing.assert_close(y, yr, **TOL["float32"])
         torch.testing.assert_close(h, hr, **TOL["float32"])
+
+
+@pytest.mark.gpu
+def test_rg_lru_scan_repeats_bitwise_inside_a_cuda_graph(cuda_device):
+    """A "scan" launch (its TMA maps are kernel parameters) captured in a
+    CUDA graph: every replayed launch gives the eager launch's bits."""
+    rnd = _rnd(cuda_device, "float32", 11)
+    a, b, h0 = torch.sigmoid(rnd(8, 129, 4096)), rnd(8, 129, 4096), rnd(8, 4096)
+    assert krglru.route(a, b, h0) == "scan"
+    want = ops.rg_lru_scan(a, b, h0)
+    graph, outs = torch.cuda.CUDAGraph(), []
+    with torch.cuda.graph(graph):
+        for _ in range(3):
+            outs.append(ops.rg_lru_scan(a, b, h0))
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    for y, h in outs:
+        assert torch.equal(y, want[0]) and torch.equal(h, want[1])
 
 
 @pytest.mark.gpu
@@ -633,12 +668,14 @@ def test_unembed_takes_bf16_operands_on_the_card(cuda_device, tied):
 def test_rg_lru_decode_steps_carry_h0(cuda_device, dtype):
     """rg_lru_scan at S = 1, each launch taking the last one's h_last as its
     h0 (a decode step's recurrence), at recurrentgemma's width: every step
-    against rg_lru_ref, and the chain bitwise the one S = 16 scan."""
+    against rg_lru_ref, and the chain ("step" route) bitwise the one S = 16
+    launch ("scan" route)."""
     rnd = _rnd(cuda_device, dtype, 22)
     f32 = _rnd(cuda_device, "float32", 23)
     B, S, d = 8, 16, 4096
     a = torch.sigmoid(rnd(B, S, d).float()).to(getattr(torch, dtype))
     b, h0 = rnd(B, S, d), f32(B, d)
+    ops.reset_kernel_launches()
     y, h = ops.rg_lru_scan(a, b, h0)
     hc, ys = h0, []
     for t in range(S):
@@ -649,6 +686,7 @@ def test_rg_lru_decode_steps_carry_h0(cuda_device, dtype):
         torch.testing.assert_close(hn, hr, **TOL["float32"])
         ys.append(yt)
         hc = hn
+    assert ops.route_launches()["rg_lru_scan"] == {"scan": 1, "step": S, "plain": 0}
     assert torch.equal(torch.cat(ys, dim=1), y) and torch.equal(hc, h)
 
 

@@ -348,6 +348,54 @@ def test_mamba_route_is_a_function_of_the_step_count(device, dtype, S, want):
         assert kmamba.route(torch.empty((B, S, di), dtype=dtype, device=device)) == want
 
 
+RG_LRU_ROUTES = [  # case, B, S, d, dtype, route the wrapper must take
+    ("rgemma-decode", 8, 1, 4096, "float32", "step"),
+    ("rgemma-decode-bf16", 8, 1, 4096, "bfloat16", "step"),
+    ("rgemma-serve", 8, 128, 4096, "float32", "scan"),
+    ("rgemma-serve-bf16", 8, 128, 4096, "bfloat16", "scan"),
+    ("s129", 8, 129, 4096, "float32", "scan"),
+    ("s13-d4096", 8, 13, 4096, "float32", "scan"),
+    ("s2-d4", 1, 2, 4, "float32", "scan"),
+    ("d1000-bf16", 3, 13, 1000, "bfloat16", "scan"),
+    ("d300", 2, 13, 300, "float32", "scan"),
+    ("d300-bf16", 2, 13, 300, "bfloat16", "plain"),  # 600-byte rows
+    ("d1001", 3, 13, 1001, "float32", "plain"),
+    ("d1001-step", 8, 1, 1001, "float32", "plain"),
+    ("d1001-bf16", 3, 13, 1001, "bfloat16", "plain"),
+]
+
+
+@pytest.mark.parametrize("device", ["meta", "cpu"])
+@pytest.mark.parametrize("case,B,S,d,dtype,want", RG_LRU_ROUTES,
+                         ids=[c[0] for c in RG_LRU_ROUTES])
+def test_rg_lru_route_is_a_function_of_shape(device, case, B, S, d, dtype, want):
+    """16-byte rows take the TMA "scan" route at S > 1 and the vector
+    "step" route at S = 1; any other row width the scalar "plain" route.
+    On the CPU the widths are cut to a few hundred, residues mod 8 kept."""
+    if device == "cpu":
+        d = d if d <= 256 else 256 + d % 8
+    a = torch.empty((B, S, d), dtype=getattr(torch, dtype), device=device)
+    h0 = torch.empty((B, d), dtype=torch.float32, device=device)
+    assert krglru.route(a, a.clone(), h0) == want
+
+
+@pytest.mark.parametrize("device", ["meta", "cpu"])
+@pytest.mark.parametrize("offset", ["a", "b", "h0"])
+def test_rg_lru_route_takes_plain_for_a_view_starting_mid_row(device, offset):
+    """A contiguous view 4 bytes past a 16-byte boundary (in any of a, b,
+    h0) takes "plain" at S > 1 and at S = 1; the same tensors cloned take
+    the vector routes."""
+    for S, aligned in [(13, "scan"), (1, "step")]:
+        t = {"a": torch.empty((2, S, 64), device=device),
+             "b": torch.empty((2, S, 64), device=device),
+             "h0": torch.empty((2, 64), device=device)}
+        assert krglru.route(t["a"], t["b"], t["h0"]) == aligned
+        base = torch.empty(t[offset].numel() + 1, device=device)
+        t[offset] = base[1:].view(t[offset].shape)
+        assert t[offset].is_contiguous() and t[offset].data_ptr() % 16 == 4
+        assert krglru.route(t["a"], t["b"], t["h0"]) == "plain"
+
+
 # ---------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------
@@ -386,10 +434,12 @@ def test_route_launch_counters_reset_and_cpu_dispatch_leaves_them():
     kbank.bank_matmul.route_launches["wgmma"] += 2
     kflash.flash_attention.route_launches["simt"] += 1
     kmamba.mamba_scan.route_launches["step"] += 3
+    krglru.rg_lru_scan.route_launches["plain"] += 1
     ops.reset_kernel_launches()
     assert ops.route_launches() == {"bank_matmul": {"wgmma": 0, "simt": 0},
                                     "flash_attention": {"mma": 0, "simt": 0},
-                                    "mamba_scan": {"step": 0, "scan": 0}}
+                                    "mamba_scan": {"step": 0, "scan": 0},
+                                    "rg_lru_scan": {"scan": 0, "step": 0, "plain": 0}}
     _, (x, w) = _inputs(1, [(3, 4, 8), (3, 8, 8)], "bfloat16")
     ops.bank_matmul(x, w)
     assert ops.route_launches()["bank_matmul"] == {"wgmma": 0, "simt": 0}
