@@ -25,6 +25,12 @@ device memory still allocated and closes with its seconds):
    same for rg_lru_scan in float32 and bf16 (``rg_lru_chain``: its
    "scan" route against its "step" route); every rg_lru_scan row names
    the route its launch counted, "plain" included (d = 1001);
+3b. the analysis tier (``analysis``): ``repro_torch.analysis``'s rules
+   over ``src/repro_torch`` strict-clean, the kernel-contract checker on
+   the card (every op's cases through its kernel in float32 and bf16 held
+   against the plain version, each op launched, every guard raising
+   before a launch), and the scans' bf16 h0 / A bitwise their float32
+   copies;
 4. small_cnn merge-and-serve: two members, trunk merged, through
    ``MergeAwareEngine``; completions against direct forwards;
 5. ``paper_sim`` (host only): ``examples/merge_and_serve.py``'s simulated
@@ -788,6 +794,69 @@ def kernel_checks(torch) -> dict:
     check_decode(torch, "internvl2-decode-kv_repl", 2, 328, 16, 16, 128, "bfloat16",
                  [321, 328], 200, gen)
     return main
+
+
+def widened_scans(torch, gen) -> dict:
+    """rg_lru_scan with a bf16 h0 and mamba_scan with a bf16 A and h0, each
+    bitwise against the same call with their float32 copies (the wrappers
+    widen them on load, as the Pallas kernels do), at recurrentgemma-9b's
+    and falcon-mamba-7b's decode widths."""
+    from repro_torch.kernels import ops as kops
+
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        a, b, h0 = torch.sigmoid(rnd(8, 16, 4096)).to(dt), rnd(8, 16, 4096).to(dt), \
+            rnd(8, 4096).to(torch.bfloat16)
+        got, want = kops.rg_lru_scan(a, b, h0), kops.rg_lru_scan(a, b, h0.float())
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
+            f"rg_lru_scan: bf16 h0 differs from its float32 copy ({dtype})"
+        args = (torch.nn.functional.softplus(rnd(8, 16, 8192)).to(dt), rnd(8, 16, 8192).to(dt),
+                rnd(8, 16, 16).to(dt), rnd(8, 16, 16).to(dt))
+        A, h0 = (-torch.exp(0.5 * rnd(8192, 16))).to(torch.bfloat16), \
+            rnd(8, 8192, 16).to(torch.bfloat16)
+        got = kops.mamba_scan(*args, A, h0)
+        want = kops.mamba_scan(*args, A.float(), h0.float())
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
+            f"mamba_scan: bf16 A, h0 differ from their float32 copies ({dtype})"
+        out[dtype] = dict(rg_lru_scan_bitwise=True, mamba_scan_bitwise=True)
+    return out
+
+
+def analysis_phase(torch) -> None:
+    """The port's analysis tier where no JAX is installed: the A-series
+    rules over ``src/repro_torch`` (``--strict``: zero findings, pragma
+    hygiene included), then the kernel-contract checker on the card
+    (``run_contracts(device="cuda")``: every case of every op in float32
+    and bf16 through its Hopper kernel, shapes and dtypes as promised,
+    values within the kernel checks' tolerances of the plain version, each
+    op's launch counter moved, every guard raising before a launch), then
+    the scans' bf16 h0 / A against their float32 copies, bitwise."""
+    from repro_torch.analysis import analyze_paths
+    from repro_torch.analysis.contracts import run_contracts
+    from repro_torch.kernels import ops
+
+    t0 = start_phase(torch, "analysis")
+    t = time.perf_counter()
+    report = analyze_paths()
+    rules_s = time.perf_counter() - t
+    gating = report.gating(strict=True)
+    assert report.ok(strict=True), [f.format() for f in gating] + report.parse_errors
+    t = time.perf_counter()
+    res = run_contracts(device="cuda")
+    contracts_s = time.perf_counter() - t
+    assert res["ok"], res["failures"]
+    launches = {name: r["launches"] for name, r in res["ops"].items()}
+    assert set(launches) == set(ops.OP_TABLE) and all(n > 0 for n in launches.values()), \
+        launches
+    widened = widened_scans(torch, torch.Generator(device="cuda").manual_seed(7))
+    emit("analysis", files_scanned=report.files_scanned, findings=len(gating),
+         suppressed=[f"{f.path}:{f.line} [{f.rule}] {f.reason}" for f in report.suppressed],
+         contract_checks=res["checks"], contract_failures=len(res["failures"]),
+         contract_launches=launches, guards={n: r["guards"] for n, r in res["ops"].items()},
+         widened_bf16=widened, rules_seconds=rules_s, contracts_seconds=contracts_s)
+    emit("phase_end", name="analysis", seconds=time.perf_counter() - t0)
 
 
 # ---------------------------------------------------------------------------
@@ -3787,6 +3856,7 @@ def main() -> int:
     check_routes = ops.route_launches()
     emit("phase_end", name="kernel_checks", seconds=time.perf_counter() - t0,
          route_launches=check_routes)
+    analysis_phase(torch)
     launches = collections.Counter()  # summed over every serve, decode and plan run
     route_totals = collections.defaultdict(collections.Counter)  # the same, by route
 

@@ -36,12 +36,10 @@ def route(x: torch.Tensor, w: torch.Tensor) -> str:
     return "simt"
 
 
-def bank_matmul(x: torch.Tensor, w: torch.Tensor,
-                b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Returns (N, M, F) float32 with out[n] = x[n] @ w[n] (+ b[n])."""
+def check_args(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> None:
+    """Raise on what the kernel does not take: shapes, dtypes and layout,
+    whatever the tensors' device (meta tensors do)."""
     tensors = [x, w] + ([b] if b is not None else [])
-    if not all(t.is_cuda for t in tensors):
-        raise ValueError("bank_matmul kernel takes CUDA tensors only")
     if len({t.device for t in tensors}) != 1:
         raise ValueError("bank_matmul: tensors on different devices")
     if w.dtype not in _DTYPES or any(t.dtype != w.dtype for t in tensors):
@@ -51,14 +49,23 @@ def bank_matmul(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"bank_matmul: x (N,M,K) or (M,K), w (N,K,F); "
                          f"got {tuple(x.shape)}, {tuple(w.shape)}")
     N, K, F = w.shape
-    broadcast = x.dim() == 2
-    M = x.shape[0] if broadcast else x.shape[1]
-    if x.shape[-1] != K or (not broadcast and x.shape[0] != N):
+    if x.shape[-1] != K or (x.dim() == 3 and x.shape[0] != N):
         raise ValueError(f"bank_matmul: x {tuple(x.shape)} vs w {tuple(w.shape)}")
     if b is not None and tuple(b.shape) != (N, F):
         raise ValueError(f"bank_matmul: b {tuple(b.shape)} != {(N, F)}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("bank_matmul: inputs must be contiguous")
+
+
+def bank_matmul(x: torch.Tensor, w: torch.Tensor,
+                b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Returns (N, M, F) float32 with out[n] = x[n] @ w[n] (+ b[n])."""
+    if not all(t.is_cuda for t in (x, w, b) if t is not None):
+        raise ValueError("bank_matmul kernel takes CUDA tensors only")
+    check_args(x, w, b)
+    N, K, F = w.shape
+    broadcast = x.dim() == 2
+    M = x.shape[0] if broadcast else x.shape[1]
     path = route(x, w)
     out = torch.empty((N, M, F), dtype=torch.float32, device=w.device)
     lib = _build.load_library()

@@ -87,11 +87,12 @@ def _counters(device: torch.device, n: int) -> torch.Tensor:
     return buf[-1]
 
 
-def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                     lengths: torch.Tensor, scale: Optional[float] = None) -> torch.Tensor:
+def check_args(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+               lengths: torch.Tensor, scale: Optional[float] = None) -> None:
+    """Raise on what the kernel does not take: shapes, dtypes, head dims,
+    the group size and layout, whatever the tensors' device (meta tensors
+    do).  The 16-byte alignment of the data is the wrapper's check."""
     tensors = (q, k_cache, v_cache, lengths)
-    if not all(t.is_cuda for t in tensors):
-        raise ValueError("decode_attention kernel takes CUDA tensors only")
     if len({t.device for t in tensors}) != 1:
         raise ValueError("decode_attention: tensors on different devices")
     if q.dtype not in _DTYPES or k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
@@ -103,7 +104,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
         raise ValueError(f"decode_attention: q (B,Hq,D), k/v (B,Smax,Hkv,D); got "
                          f"{tuple(q.shape)}, {tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
     B, Hq, D = q.shape
-    _, Smax, Hkv, _ = k_cache.shape
+    Hkv = k_cache.shape[2]
     if k_cache.shape[0] != B or k_cache.shape[3] != D or Hq % Hkv:
         raise ValueError(f"decode_attention: q {tuple(q.shape)} vs k {tuple(k_cache.shape)}")
     if tuple(lengths.shape) != (B,):
@@ -115,6 +116,16 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
                          f"> {MAX_GROUP}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("decode_attention: inputs must be contiguous")
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     lengths: torch.Tensor, scale: Optional[float] = None) -> torch.Tensor:
+    tensors = (q, k_cache, v_cache, lengths)
+    if not all(t.is_cuda for t in tensors):
+        raise ValueError("decode_attention kernel takes CUDA tensors only")
+    check_args(q, k_cache, v_cache, lengths, scale)
+    B, Hq, D = q.shape
+    _, Smax, Hkv, _ = k_cache.shape
     if any(t.data_ptr() % 16 for t in tensors[:3]):
         raise ValueError("decode_attention: q, k and v must be 16-byte aligned")
     scale = 1.0 / math.sqrt(D) if scale is None else float(scale)

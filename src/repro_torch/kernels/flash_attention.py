@@ -30,11 +30,10 @@ def route(q: torch.Tensor) -> str:
     return "mma" if q.dtype == torch.bfloat16 and q.shape[-1] in HEAD_DIMS else "simt"
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, window: Optional[int] = None,
-                    scale: Optional[float] = None) -> torch.Tensor:
-    if not (q.is_cuda and k.is_cuda and v.is_cuda):
-        raise ValueError("flash_attention kernel takes CUDA tensors only")
+def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
+               window: Optional[int] = None, scale: Optional[float] = None) -> None:
+    """Raise on what the kernel does not take: shapes, dtypes, head dims
+    and layout, whatever the tensors' device (meta tensors do)."""
     if len({q.device, k.device, v.device}) != 1:
         raise ValueError("flash_attention: tensors on different devices")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -53,6 +52,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: window must be >= 1, got {window}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: inputs must be contiguous")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: Optional[int] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    if not (q.is_cuda and k.is_cuda and v.is_cuda):
+        raise ValueError("flash_attention kernel takes CUDA tensors only")
+    check_args(q, k, v, causal, window, scale)
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
     scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
     path = route(q)
     out = torch.empty_like(q)

@@ -4,7 +4,7 @@
 
 ``dt``, ``dtx`` are ``(B, S, di)`` and ``Bmat``, ``Cmat`` ``(B, S, n)``, all
 of one dtype (float32 or bfloat16); ``A`` ``(di, n)`` and ``h0``
-``(B, di, n)`` are float32.  Returns ``(y (B, S, di), h_last (B, di, n))``,
+``(B, di, n)`` are float32 or bfloat16, widened to float32 on load.  Returns ``(y (B, S, di), h_last (B, di, n))``,
 both float32.  State dims 8 and 16 are compiled; any S >= 1 is taken, so
 the caller pads nothing (the Pallas version needs S divisible by its
 chunk).  Two routes, picked by :func:`route` from S alone: ``"step"``
@@ -32,18 +32,19 @@ def route(dt: torch.Tensor) -> str:
     return "step" if dt.shape[1] == 1 else "scan"
 
 
-def mamba_scan(dt: torch.Tensor, dtx: torch.Tensor, Bmat: torch.Tensor,
-               Cmat: torch.Tensor, A: torch.Tensor, h0: torch.Tensor) -> tuple:
+def check_args(dt: torch.Tensor, dtx: torch.Tensor, Bmat: torch.Tensor, Cmat: torch.Tensor,
+               A: torch.Tensor, h0: torch.Tensor) -> None:
+    """Raise on what the kernel does not take: shapes, dtypes, state dims
+    and layout, whatever the tensors' device (meta tensors do)."""
     tensors = (dt, dtx, Bmat, Cmat, A, h0)
-    if not all(t.is_cuda for t in tensors):
-        raise ValueError("mamba_scan kernel takes CUDA tensors only")
     if len({t.device for t in tensors}) != 1:
         raise ValueError("mamba_scan: tensors on different devices")
     if dt.dtype not in _DTYPES or any(t.dtype != dt.dtype for t in (dtx, Bmat, Cmat)):
         raise TypeError(f"mamba_scan: dt, dtx, Bmat, Cmat float32 or bfloat16 of one "
                         f"dtype, got {dt.dtype}, {dtx.dtype}, {Bmat.dtype}, {Cmat.dtype}")
-    if A.dtype != torch.float32 or h0.dtype != torch.float32:
-        raise TypeError(f"mamba_scan: A and h0 must be float32, got {A.dtype}, {h0.dtype}")
+    if A.dtype not in _DTYPES or h0.dtype not in _DTYPES:
+        raise TypeError(f"mamba_scan: A and h0 float32 or bfloat16, got {A.dtype}, "
+                        f"{h0.dtype}")
     if dt.dim() != 3 or A.dim() != 2:
         raise ValueError(f"mamba_scan: dt (B,S,di), A (di,n); got {tuple(dt.shape)}, "
                          f"{tuple(A.shape)}")
@@ -58,6 +59,18 @@ def mamba_scan(dt: torch.Tensor, dtx: torch.Tensor, Bmat: torch.Tensor,
         raise ValueError(f"mamba_scan: state dim {n} not compiled ({STATE_DIMS})")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("mamba_scan: inputs must be contiguous")
+
+
+def mamba_scan(dt: torch.Tensor, dtx: torch.Tensor, Bmat: torch.Tensor,
+               Cmat: torch.Tensor, A: torch.Tensor, h0: torch.Tensor) -> tuple:
+    if not all(t.is_cuda for t in (dt, dtx, Bmat, Cmat, A, h0)):
+        raise ValueError("mamba_scan kernel takes CUDA tensors only")
+    check_args(dt, dtx, Bmat, Cmat, A, h0)
+    B, S, di = dt.shape
+    n = A.shape[1]
+    # widened on load, as the Pallas kernel does: a float32 copy of a bf16
+    # value is exact, so this equals the call with float32 A and h0
+    A, h0 = A.float(), h0.float()
     # the kernel reads these with 16-byte (bf16 B, C: 8-byte) vector loads; a
     # view starting mid-row (a (1, 1, n) slice of a wider projection) is copied
     Bmat, Cmat, A, h0 = (t if t.data_ptr() % 16 == 0 else t.clone()

@@ -291,6 +291,7 @@ class OpSpec:
     source: str = ""  # the CUDA source, relative to the repository root
     replaces: str = ""  # the Pallas TPU kernel's pallas_call, file:line
     cost: object = None  # (*args, **kwargs) -> Cost of the kernel's work
+    check: object = None  # the kernel's argument checks, device-agnostic (raise or None)
 
 
 OP_TABLE: dict = {
@@ -299,33 +300,33 @@ OP_TABLE: dict = {
                _ref.flash_attention_ref, flash_attention, ("q", "k", "v"),
                source="src/repro_torch/kernels/csrc/flash_attention.cu",
                replaces="src/repro/kernels/flash_attention.py:127",
-               cost=flash_attention_cost),
+               cost=flash_attention_cost, check=_flash_mod.check_args),
         OpSpec("decode_attention", _decode_mod.decode_attention,
                _ref.decode_attention_ref, decode_attention,
                ("q", "k_cache", "v_cache", "lengths"),
                source="src/repro_torch/kernels/csrc/decode_attention.cu",
                replaces="src/repro/kernels/decode_attention.py:98",
-               cost=decode_attention_cost),
+               cost=decode_attention_cost, check=_decode_mod.check_args),
         OpSpec("page_gather", _gather_mod.page_gather, _ref.page_gather_ref,
                page_gather, ("pool", "page_table"),
                source="src/repro_torch/kernels/csrc/page_gather.cu",
                replaces="src/repro/kernels/page_gather.py:41",
-               cost=page_gather_cost),
+               cost=page_gather_cost, check=_gather_mod.check_args),
         OpSpec("bank_matmul", _bank_mod.bank_matmul, _ref.bank_matmul_ref,
                bank_matmul, ("x", "w"), optional_args=("b",),
                source="src/repro_torch/kernels/csrc/bank_matmul.cu",
                replaces="src/repro/kernels/bank_matmul.py:123",
-               cost=bank_matmul_cost),
+               cost=bank_matmul_cost, check=_bank_mod.check_args),
         OpSpec("mamba_scan", _mamba_mod.mamba_scan, _ref.mamba_scan_ref, mamba_scan,
                ("dt", "dtx", "Bmat", "Cmat", "A", "h0"),
                source="src/repro_torch/kernels/csrc/mamba_scan.cu",
                replaces="src/repro/kernels/mamba_scan.py:78",
-               cost=mamba_scan_cost),
+               cost=mamba_scan_cost, check=_mamba_mod.check_args),
         OpSpec("rg_lru_scan", _rg_lru_mod.rg_lru_scan, _ref.rg_lru_ref, rg_lru_scan,
                ("a", "b", "h0"),
                source="src/repro_torch/kernels/csrc/rg_lru.cu",
                replaces="src/repro/kernels/rg_lru.py:65",
-               cost=rg_lru_scan_cost),
+               cost=rg_lru_scan_cost, check=_rg_lru_mod.check_args),
     )
 }
 

@@ -3,7 +3,7 @@
     h_t = a_t ⊙ h_{t-1} + b_t,      y_t = h_t
 
 ``a``, ``b`` are ``(B, S, d)`` of one dtype (float32 or bfloat16), ``h0``
-``(B, d)`` float32.  Returns ``(y (B, S, d), h_last (B, d))``, both
+``(B, d)`` float32 or bfloat16, widened to float32 on load.  Returns ``(y (B, S, d), h_last (B, d))``, both
 float32.  Any S >= 1 is taken, so the caller pads nothing (the Pallas
 version needs S divisible by its chunk).  Three routes, picked by
 :func:`route` from shape and alignment alone: ``"scan"`` (S > 1: TMA boxes
@@ -38,21 +38,30 @@ def route(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> str:
     return "step" if a.shape[1] == 1 else "scan"
 
 
-def rg_lru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> tuple:
-    if not (a.is_cuda and b.is_cuda and h0.is_cuda):
-        raise ValueError("rg_lru_scan kernel takes CUDA tensors only")
+def check_args(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> None:
+    """Raise on what the kernel does not take: shapes, dtypes and layout,
+    whatever the tensors' device (meta tensors do)."""
     if len({a.device, b.device, h0.device}) != 1:
         raise ValueError("rg_lru_scan: tensors on different devices")
     if a.dtype not in _DTYPES or b.dtype != a.dtype:
         raise TypeError(f"rg_lru_scan: a, b float32 or bfloat16 of one dtype, got "
                         f"{a.dtype}, {b.dtype}")
-    if h0.dtype != torch.float32:
-        raise TypeError(f"rg_lru_scan: h0 must be float32, got {h0.dtype}")
+    if h0.dtype not in _DTYPES:
+        raise TypeError(f"rg_lru_scan: h0 float32 or bfloat16, got {h0.dtype}")
     if a.dim() != 3 or b.shape != a.shape or h0.shape != (a.shape[0], a.shape[2]):
         raise ValueError(f"rg_lru_scan: a, b (B,S,d), h0 (B,d); got {tuple(a.shape)}, "
                          f"{tuple(b.shape)}, {tuple(h0.shape)}")
     if not (a.is_contiguous() and b.is_contiguous() and h0.is_contiguous()):
         raise ValueError("rg_lru_scan: inputs must be contiguous")
+
+
+def rg_lru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> tuple:
+    if not (a.is_cuda and b.is_cuda and h0.is_cuda):
+        raise ValueError("rg_lru_scan kernel takes CUDA tensors only")
+    check_args(a, b, h0)
+    # widened on load, as the Pallas kernel does: a float32 copy of a bf16
+    # value is exact, so this equals the call with a float32 h0
+    h0 = h0.float()
     B, S, d = a.shape
     path = route(a, b, h0)
     y = torch.empty((B, S, d), dtype=torch.float32, device=a.device)

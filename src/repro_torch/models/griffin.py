@@ -238,6 +238,8 @@ def _attn_full(cfg: GriffinConfig, p: dict, x: torch.Tensor, positions: torch.Te
         attn = kops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                     causal=True, window=cfg.window)
     else:
+        # repro: allow[A103] packed/offset positions need the masked plain
+        # attention (the kernel assumes the 0..S-1 layout)
         attn = L.blocked_causal_attention(q, k, v, positions, window=cfg.window,
                                           block_q=ATTN_BLOCK_Q)
     return L.dense(attn.reshape(B, S, -1), p["wo"])

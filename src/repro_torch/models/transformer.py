@@ -500,6 +500,8 @@ def _block_prefill(cfg: DenseLMConfig, p: dict, x: torch.Tensor, positions: torc
         attn = kops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                     causal=True, window=cfg.window)
     else:
+        # repro: allow[A103] prefill at explicit positions needs the blocked
+        # flash-analogue; kernel routing lives in _block/_block_decode
         attn = L.blocked_causal_attention(q, k, v, positions, window=cfg.window,
                                           block_q=cfg.prefill_block_q)
     x = x + L.dense(attn.reshape(B, S, -1), p["attn"]["wo"])

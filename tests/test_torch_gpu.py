@@ -278,15 +278,49 @@ def test_kernel_wrappers_reject_what_they_do_not_take(cuda_device):
         ops.mamba_scan(dt, dt, dt[..., :4].contiguous(), dt[..., :4].contiguous(),
                        torch.zeros((16, 4), device=cuda_device),
                        torch.zeros((2, 16, 4), device=cuda_device))
-    with pytest.raises(TypeError, match="float32"):
+    # a bf16 A or h0 is widened on load (test_scans_widen_a_bf16_h0_and_A); float16 is not taken
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
         ops.mamba_scan(dt, dt, dt[..., :8].contiguous(), dt[..., :8].contiguous(),
-                       torch.zeros((16, 8), device=cuda_device, dtype=torch.bfloat16),
+                       torch.zeros((16, 8), device=cuda_device, dtype=torch.float16),
                        torch.zeros((2, 16, 8), device=cuda_device))
-    with pytest.raises(TypeError, match="h0 must be float32"):
-        ops.rg_lru_scan(dt, dt, torch.zeros((2, 16), device=cuda_device, dtype=torch.bfloat16))
+    with pytest.raises(TypeError, match="h0 float32 or bfloat16"):
+        ops.rg_lru_scan(dt, dt, torch.zeros((2, 16), device=cuda_device, dtype=torch.float16))
     with pytest.raises(ValueError, match="contiguous"):
         ops.rg_lru_scan(dt.transpose(0, 1), dt.transpose(0, 1), torch.zeros((3, 16),
                                                                             device=cuda_device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_scans_widen_a_bf16_h0_and_A(cuda_device, dtype):
+    """A bf16 h0 (and mamba's A) is widened to float32 on load, as the JAX
+    package's kernels do: the result is bitwise the call with the float32
+    copies."""
+    rnd = _rnd(cuda_device, dtype, 11)
+    f32 = _rnd(cuda_device, "float32", 12)
+    a, b = torch.sigmoid(rnd(3, 13, 64).float()).to(getattr(torch, dtype)), rnd(3, 13, 64)
+    h0 = f32(3, 64).to(torch.bfloat16)
+    got, want = ops.rg_lru_scan(a, b, h0), ops.rg_lru_scan(a, b, h0.float())
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    dt = torch.nn.functional.softplus(rnd(2, 9, 32).float()).to(getattr(torch, dtype))
+    dtx, Bm, Cm = rnd(2, 9, 32), rnd(2, 9, 16), rnd(2, 9, 16)
+    A, h0 = (-torch.exp(0.5 * f32(32, 16))).to(torch.bfloat16), f32(2, 32, 16).to(torch.bfloat16)
+    got = ops.mamba_scan(dt, dtx, Bm, Cm, A, h0)
+    want = ops.mamba_scan(dt, dtx, Bm, Cm, A.float(), h0.float())
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+def test_kernel_contracts_hold_on_the_card(cuda_device):
+    """The contract checker on the card: every case through the Hopper
+    kernels within the kernel checks' tolerances of the plain versions,
+    every op launched, every guard raising before a launch."""
+    from repro_torch.analysis.contracts import run_contracts
+
+    res = run_contracts(device="cuda")
+    assert res["ok"], res["failures"]
+    assert set(res["ops"]) == set(ops.OP_TABLE)
+    assert all(r["launches"] > 0 and r["guards"] > 0 for r in res["ops"].values()), res["ops"]
 
 
 @pytest.mark.gpu
