@@ -2474,24 +2474,33 @@ def stablelm_lm_serve_phase(torch, cfg) -> tuple:
 def profile_lane(torch, rerun, range_name: str) -> tuple:
     """``rerun()`` — a decode lane served once more on the same executor or
     engine — under ``torch.profiler``, its kernel launches taken off the
-    counts.  Returns (the device's busy ms inside the lane's profiler range
-    ``range_name``, which spans its timed loop and leaves the warm-up and
-    the captures before it out; the rerun's stats)."""
+    counts, with the program's tracer on so that the lane's span
+    ``range_name`` is a profiler range.  Returns (the device's busy ms
+    inside that range, which spans its timed loop and leaves the warm-up
+    and the captures before it out; the rerun's stats)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.runtime import trace
     from repro_torch.serving.graphs import uncounted
 
     torch.cuda.synchronize()
-    with uncounted(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        stats = rerun()
-        torch.cuda.synchronize()
+    trace.enable(True)  # the lane's span is a profiler range while the tracer is on
+    try:
+        with uncounted(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            stats = rerun()
+            torch.cuda.synchronize()
+    finally:
+        spans = {r.name for r in trace.records()}
+        trace.enable(False)
+        trace.reset()
     cuda = torch.autograd.DeviceType.CUDA
     events = prof.events()
     (lane,) = [e for e in events if e.name == range_name and e.device_type != cuda]
     lo, hi = lane.time_range.start, lane.time_range.end
-    # the range's own mirror on the device timeline is an annotation, not work
+    # each span's mirror on the device timeline (the lane's and those nested
+    # in it) is an annotation over the kernels it covers, not work
     busy_us = sum(e.time_range.elapsed_us() for e in events
-                  if e.device_type == cuda and e.name != range_name
+                  if e.device_type == cuda and e.name not in spans
                   and lo <= e.time_range.start <= hi)
     return busy_us / 1e3, stats
 

@@ -55,6 +55,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.runtime import trace
 from repro_torch.serving.executor import MergeAwareEngine
 from repro_torch.serving.graphs import StepGraphs, check_in_place, uncounted
 from repro_torch.serving.workload import bucket_for
@@ -383,7 +384,14 @@ class StreamingDecoder:
 
     def step(self) -> None:
         """Advance every live row by one token (one trunk + one head fan-out
-        dispatch per shared group), then retire finished requests."""
+        dispatch per shared group), then retire finished requests.  The
+        step is the span ``decoder.step``; its children are each prefill
+        chunk (``decoder.prefill``) and each group step's token read
+        (``decoder.emit``)."""
+        with trace.span("decoder.step"):
+            self._step()
+
+    def _step(self) -> None:
         if self.store.epoch != self._epoch:
             # a rebinding landed: one pool epoch bump per store epoch move;
             # page tables and lengths survive — in-flight requests keep their
@@ -436,23 +444,26 @@ class StreamingDecoder:
             by_k.setdefault(k, []).append(s)
         for k, ss in sorted(by_k.items()):
             bucket = bucket_for(len(ss), self.buckets)
-            for s in ss:
-                pool.ensure(s.rid, s.length + k)
-            tables, tokens, lengths = self._pad_rows(
-                bucket, pool.table_rows([s.rid for s in ss], self.max_pages),
-                np.array([s.prompt[s.pos:s.pos + k] for s in ss], np.int32),
-                np.array([s.length for s in ss], np.int32))
-            # a batch past the largest bucket runs unpadded, at its own size
-            self._launch(*self._prefill_call(group, k, len(tables)), (tables, lengths, tokens),
-                         group)
-            self.stats["prefill_chunk_dispatches"] += 1
-            self.trunk_passes["run"] += k
-            for s in ss:
-                s.length += k
-                s.pos += k
-                self.stats["prefill_chunks"] += 1
-                self.stats["prefill_chunk_tokens"] += k
-                self.stats["prompt_tokens"] += k
+            with trace.span("decoder.prefill"):
+                for s in ss:
+                    pool.ensure(s.rid, s.length + k)
+                tables, tokens, lengths = self._pad_rows(
+                    bucket, pool.table_rows([s.rid for s in ss], self.max_pages),
+                    np.array([s.prompt[s.pos:s.pos + k] for s in ss], np.int32),
+                    np.array([s.length for s in ss], np.int32))
+                # a batch past the largest bucket runs unpadded, at its own size
+                self._launch(*self._prefill_call(group, k, len(tables)),
+                             (tables, lengths, tokens), group)
+                if trace.enabled():
+                    self._count_pages(len(tables), [s.length for s in ss], k)
+                self.stats["prefill_chunk_dispatches"] += 1
+                self.trunk_passes["run"] += k
+                for s in ss:
+                    s.length += k
+                    s.pos += k
+                    self.stats["prefill_chunks"] += 1
+                    self.stats["prefill_chunk_tokens"] += k
+                    self.stats["prompt_tokens"] += k
 
     def _run_group_step(self, group: list, slots: list) -> None:
         pool = self.pool_for(group[0])
@@ -468,6 +479,8 @@ class StreamingDecoder:
         members = sorted({s.request.instance_id for s in slots})
         call = self._group_call(group, members, len(tables))
         rows = self._launch(*call, (tables, lengths, tokens), group)  # (N, rows, V)
+        if trace.enabled():
+            self._count_pages(len(tables), [s.length for s in slots], 1)
         if len(group) > 1:
             self.stats["group_steps"] += 1
             self.stats["trunk_dispatches"] += 1
@@ -482,27 +495,39 @@ class StreamingDecoder:
             row_of = {group[0]: 0}
         self.trunk_passes["run"] += 1
 
-        emitting = []
-        for j, s in enumerate(slots):
-            s.steps += 1
-            s.length += 1
-            if s.pos < len(s.prompt):
-                s.pos += 1
-                self.stats["prompt_tokens"] += 1
-            if s.pos >= len(s.prompt) and not s.finished:
-                emitting.append((j, s))
-        if not emitting:
-            return
-        sel = rows[torch.as_tensor([row_of[s.request.instance_id] for _, s in emitting]),
-                   torch.as_tensor([j for j, _ in emitting])]  # (E, V)
-        toks = sel.argmax(dim=-1).tolist()
-        host = sel.float().cpu().numpy() if self.record_logits else None
-        for e, ((_, s), tok) in enumerate(zip(emitting, toks)):
-            s.out_tokens.append(tok)
-            s.last_token = tok
-            self.stats["tokens_decoded"] += 1
-            if s.logits is not None:
-                s.logits.append(host[e])
+        with trace.span("decoder.emit"):  # the .tolist() waits for the device
+            emitting = []
+            for j, s in enumerate(slots):
+                s.steps += 1
+                s.length += 1
+                if s.pos < len(s.prompt):
+                    s.pos += 1
+                    self.stats["prompt_tokens"] += 1
+                if s.pos >= len(s.prompt) and not s.finished:
+                    emitting.append((j, s))
+            if not emitting:
+                return
+            sel = rows[torch.as_tensor([row_of[s.request.instance_id] for _, s in emitting]),
+                       torch.as_tensor([j for j, _ in emitting])]  # (E, V)
+            toks = sel.argmax(dim=-1).tolist()
+            host = sel.float().cpu().numpy() if self.record_logits else None
+            for e, ((_, s), tok) in enumerate(zip(emitting, toks)):
+                s.out_tokens.append(tok)
+                s.last_token = tok
+                self.stats["tokens_decoded"] += 1
+                if s.logits is not None:
+                    s.logits.append(host[e])
+
+    def _count_pages(self, n_rows: int, lengths: list, passes: int) -> None:
+        """Count the pages one dispatch of ``passes`` trunk passes reads:
+        every pass reads all ``max_pages`` entries of each of the ``n_rows``
+        table rows (padded rows too: a dense family's ``page_gather`` copies
+        them all), of which, after its ``c``-th pass, a real row of length
+        ``n`` before the dispatch holds tokens in ceil((n + c) / page_size)."""
+        p = self.page_size
+        trace.count("decoder.pages_gathered", passes * n_rows * self.max_pages)
+        trace.count("decoder.pages_live", sum(-(-(n + c) // p) for n in lengths
+                                              for c in range(1, passes + 1)))
 
     def _params(self, iid: str):
         return self.engine._params(iid)
@@ -656,13 +681,14 @@ class StreamingDecoder:
             on_step: Optional[Callable] = None, warmup: bool = True) -> dict:
         """Serve ``requests`` to completion (or the horizon).  ``on_step``
         fires after every engine step with (decoder, step_index) — the
-        mid-decode rebinding hook."""
+        mid-decode rebinding hook.  The loop after the warm-up is the span
+        ``StreamingDecoder.run.steps``."""
         for req in requests:
             self.submit(req)
         if warmup:
             self._warmup()
         self._t0 = self.clock()
-        with torch.profiler.record_function("StreamingDecoder.run.steps"):
+        with trace.span("StreamingDecoder.run.steps"):
             while (self.queue or self.slots) and self.clock() - self._t0 < horizon_s:
                 self._admit()
                 if not self.slots:  # queue non-empty but nothing admittable

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.store import ParamStore
+from repro_torch.runtime import trace
 from repro_torch.serving.costs import PCIE_GBPS
 from repro_torch.serving.graphs import StepGraphs, check_in_place
 from repro_torch.serving.scheduler import Instance, Scheduler
@@ -207,8 +208,9 @@ class EdgeExecutor:
         scratch cache.  On a CUDA device it then captures them on the lane's
         cache, and each ``step_unpaged`` is the replay of a CUDA graph per
         (model, step length, store epoch) (``decode_graphs``), as the JAX
-        package jits it.  The timed loop runs inside the profiler range
-        ``EdgeExecutor.serve_decode.lane``."""
+        package jits it.  The timed loop runs inside the span
+        ``EdgeExecutor.serve_decode.lane`` (``runtime.trace``), a profiler
+        range while the tracer is on."""
         from repro_torch.serving.decode import DecodeCompletion
 
         progs = {p.instance_id: p for p in programs}
@@ -267,7 +269,7 @@ class EdgeExecutor:
         stats = {"steps": 0, "tokens_decoded": 0, "prompt_tokens": 0}
         completions: list = []
         t0 = self.clock()
-        with torch.profiler.record_function("EdgeExecutor.serve_decode.lane"):
+        with trace.span("EdgeExecutor.serve_decode.lane"):
             for req in order:
                 if self.clock() - t0 > horizon_s:
                     break
@@ -674,62 +676,75 @@ class MergeAwareEngine:
         member's head in ONE bank dispatch and scatters each completion out
         of its (member, row) cell; otherwise each member's suffix runs on
         its own rows.  ``suffix_dispatches`` counts device dispatches of
-        suffix work, ``suffix_runs`` logical member-head executions."""
+        suffix work, ``suffix_runs`` logical member-head executions.
+
+        Each micro-batch is the span ``engine.microbatch``, its wait for the
+        device ``engine.wait``; the counters ``engine.head_rows_computed`` /
+        ``engine.head_rows_used`` take the head rows its suffix work computed
+        (N x bucket banked, each member's padded sub-bucket, the bucket for
+        a forward) and its real rows."""
         shared = len(group) > 1
         bankable = shared and self._group_bankable(tuple(group))
         for mb in deadline_microbatches(reqs, self.buckets):
             self.stats["microbatches"] += 1
-            batch, n = pad_stack([r.payload for r in mb.requests], mb.bucket)
-            banked = bankable and len({r.instance_id for r in mb.requests}) > 1
-            if banked:
-                lead = group[0]
-                feats = self.programs[lead].prefix(self._params(lead), batch)
-                self.stats["prefix_runs"] += 1
-                bank_out = self._bank_fn(group)(self._bank_params(group), feats)
-                self.stats["suffix_runs"] += len(group)
-                self.stats["suffix_dispatches"] += 1
-                block_until_ready(bank_out)
-                slot = {iid: i for i, iid in enumerate(group)}
-                done = self.clock() - t0
-                # each completion owns a copy of its row, as the JAX
-                # package's indexing gives one: a view would keep the whole
-                # micro-batch output alive as long as any completion is
-                for j, r in enumerate(mb.requests):
-                    self.completions.append(
-                        Completion(r, bank_out[slot[r.instance_id], j].clone(), done))
-                continue
-            rows_by_iid: dict = {}
-            for j, r in enumerate(mb.requests):
-                rows_by_iid.setdefault(r.instance_id, []).append(j)
-            if shared:
-                lead = group[0]
-                feats = self.programs[lead].prefix(self._params(lead), batch)
-                self.stats["prefix_runs"] += 1
-                outs, pos = {}, {}
-                for iid, idx in rows_by_iid.items():
-                    if len(idx) == mb.bucket:
-                        sub = feats  # whole batch belongs to this instance
-                    else:
-                        # fan out only this instance's rows, padded back onto
-                        # the bucket ladder so suffix shapes stay bounded
-                        sb = next(b for b in self.buckets if len(idx) <= b)
-                        take = idx + [idx[-1]] * (sb - len(idx))
-                        sub = feats[torch.tensor(take, device=feats.device)]
-                    outs[iid] = self.programs[iid].suffix(self._params(iid), sub)
-                    pos[iid] = {g: k for k, g in enumerate(idx)}
-                    self.stats["suffix_runs"] += 1
+            with trace.span("engine.microbatch"):
+                trace.count("engine.head_rows_used", len(mb.requests))
+                batch, n = pad_stack([r.payload for r in mb.requests], mb.bucket)
+                banked = bankable and len({r.instance_id for r in mb.requests}) > 1
+                if banked:
+                    lead = group[0]
+                    feats = self.programs[lead].prefix(self._params(lead), batch)
+                    self.stats["prefix_runs"] += 1
+                    bank_out = self._bank_fn(group)(self._bank_params(group), feats)
+                    self.stats["suffix_runs"] += len(group)
                     self.stats["suffix_dispatches"] += 1
-            else:
-                (iid,) = group
-                outs = {iid: self.programs[iid].forward(self._params(iid), batch)}
-                pos = {iid: {j: j for j in range(len(mb.requests))}}
-                self.stats["forward_runs"] += 1
-            for o in outs.values():
-                block_until_ready(o)
-            done = self.clock() - t0
-            for j, r in enumerate(mb.requests):
-                row = pos[r.instance_id][j]
-                self.completions.append(Completion(r, outs[r.instance_id][row].clone(), done))
+                    trace.count("engine.head_rows_computed", len(group) * mb.bucket)
+                    with trace.span("engine.wait"):
+                        block_until_ready(bank_out)
+                    slot = {iid: i for i, iid in enumerate(group)}
+                    done = self.clock() - t0
+                    # each completion owns a copy of its row, as the JAX
+                    # package's indexing gives one: a view would keep the whole
+                    # micro-batch output alive as long as any completion is
+                    for j, r in enumerate(mb.requests):
+                        self.completions.append(
+                            Completion(r, bank_out[slot[r.instance_id], j].clone(), done))
+                    continue
+                rows_by_iid: dict = {}
+                for j, r in enumerate(mb.requests):
+                    rows_by_iid.setdefault(r.instance_id, []).append(j)
+                if shared:
+                    lead = group[0]
+                    feats = self.programs[lead].prefix(self._params(lead), batch)
+                    self.stats["prefix_runs"] += 1
+                    outs, pos = {}, {}
+                    for iid, idx in rows_by_iid.items():
+                        if len(idx) == mb.bucket:
+                            sub = feats  # whole batch belongs to this instance
+                        else:
+                            # fan out only this instance's rows, padded back onto
+                            # the bucket ladder so suffix shapes stay bounded
+                            sb = next(b for b in self.buckets if len(idx) <= b)
+                            take = idx + [idx[-1]] * (sb - len(idx))
+                            sub = feats[torch.tensor(take, device=feats.device)]
+                        outs[iid] = self.programs[iid].suffix(self._params(iid), sub)
+                        trace.count("engine.head_rows_computed", sub.shape[0])
+                        pos[iid] = {g: k for k, g in enumerate(idx)}
+                        self.stats["suffix_runs"] += 1
+                        self.stats["suffix_dispatches"] += 1
+                else:
+                    (iid,) = group
+                    outs = {iid: self.programs[iid].forward(self._params(iid), batch)}
+                    pos = {iid: {j: j for j in range(len(mb.requests))}}
+                    self.stats["forward_runs"] += 1
+                    trace.count("engine.head_rows_computed", mb.bucket)
+                with trace.span("engine.wait"):
+                    for o in outs.values():
+                        block_until_ready(o)
+                done = self.clock() - t0
+                for j, r in enumerate(mb.requests):
+                    row = pos[r.instance_id][j]
+                    self.completions.append(Completion(r, outs[r.instance_id][row].clone(), done))
 
     def _warmup(self, payload) -> None:
         """Run every (group, bucket) path once before the SLA clock starts:
@@ -772,7 +787,12 @@ class MergeAwareEngine:
     def serve(self, horizon_s: float, warmup: Any = None, drain: bool = True) -> dict:
         """Serve until the horizon (or until the queues are drained, with
         ``drain=True``).  Returns stats including cache/prefetch health;
-        every counter is the delta over this call."""
+        every counter is the delta over this call.  The call is the span
+        ``engine.serve``."""
+        with trace.span("engine.serve"):
+            return self._serve(horizon_s, warmup, drain)
+
+    def _serve(self, horizon_s: float, warmup: Any, drain: bool) -> dict:
         if warmup is not None:
             self._warmup(warmup)
         mat_before = dict(self.store.materializations)
